@@ -1,0 +1,34 @@
+"""litcoder_core_torch — the PyTorch/CUDA port of litcoder_core_tpu.
+
+It keeps the JAX package's public names and metrics contract and runs on an
+NVIDIA card: the fused Lanczos+FIR step is a hand-written CUDA kernel
+(csrc/lanczos_fir.cu), the rest plain torch ops. Entry points run on the
+card by default and raise without one; pass device='cpu' for the CPU.
+
+This slice covers the main path: AbstractTrainer with wordrate and static
+embeddings, Lanczos downsampling with FIR delays (fused or two-stage),
+train/test structuring, and fit_nested_cv in train/test mode through the
+Cholesky alpha search and the spectral refit. ROADMAP.md lists the rest.
+"""
+
+__version__ = "0.1.0"
+
+from litcoder_core_torch.assembly.assemblies import SimpleNeuroidAssembly
+from litcoder_core_torch.assembly.story_data import StoryData
+from litcoder_core_torch.downsample.downsampling import Downsampler
+from litcoder_core_torch.features.factory import FeatureExtractorFactory
+from litcoder_core_torch.features.fir_expander import FIR
+from litcoder_core_torch.models.nested_cv import NestedCVModel, fit_nested_cv
+from litcoder_core_torch.trainer import AbstractTrainer
+
+__all__ = [
+    "AbstractTrainer",
+    "Downsampler",
+    "FIR",
+    "FeatureExtractorFactory",
+    "NestedCVModel",
+    "SimpleNeuroidAssembly",
+    "StoryData",
+    "fit_nested_cv",
+    "__version__",
+]

@@ -1,0 +1,331 @@
+"""Pipeline orchestrator (twin of litcoder_core_tpu/trainer.py).
+
+Same flow and constructor contract as the JAX AbstractTrainer: extract ->
+downsample -> FIR -> structure (train/test split or concatenation) ->
+fit_predict -> log/save. Tensors live on `device` from the fused Lanczos+FIR
+kernel through structuring and into the fit; the only host copies are the
+explicit ones for metrics and saving.
+
+Not ported yet (ROADMAP.md): logger backends other than 'none' and the
+brain plots, per-space (banded) features, and the response prefetch.
+"""
+
+import logging
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from litcoder_core_torch.features.factory import FeatureExtractorFactory
+from litcoder_core_torch.features.fir_expander import FIR
+from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
+from litcoder_core_torch.ops.stats import trainer_zscore
+from litcoder_core_torch.plotting.plotting_utils import NullLogger
+from litcoder_core_torch.utils.device import (
+    as_f32,
+    resolve_device,
+    synchronizer,
+)
+from litcoder_core_torch.utils.profiling import StageTimer
+from litcoder_core_torch.utils.saver import ModelSaver
+
+logger = logging.getLogger(__name__)
+
+
+class AbstractTrainer:
+    """Orchestrates the encoding pipeline with injected components."""
+
+    def __init__(
+        self,
+        assembly: Any,
+        feature_extractors: List[Any],
+        downsampler: Any,
+        model: Any,
+        fir_delays: List[int],
+        trimming_config: Dict,
+        use_train_test_split: bool = False,
+        layer_idx: int = 9,
+        lookback: int = 256,
+        dataset_type: str = "unknown",
+        logger_backend: str = "none",
+        wandb_project_name: str = "abstract-trainer",
+        results_dir: str = "results",
+        run_name: Optional[str] = None,
+        downsample_config: Optional[Dict] = None,
+        story_selection: Optional[List[str]] = None,
+        fused_downsample_fir: Any = "auto",
+        device="cuda",
+    ):
+        """fused_downsample_fir: 'auto' runs Lanczos downsampling and FIR
+        delays as one fused kernel (ops.lanczos_fir) whenever that equals
+        the two-stage path (method 'lanczos' without rectify, all delays
+        positive); False keeps the two-stage path; True requires the fused
+        one. `device` is where every stage runs ('cuda' by default; with no
+        card it raises)."""
+        del wandb_project_name, run_name  # for logger backends not ported
+        self.device = resolve_device(device)
+        self.assembly = assembly
+        self.fused_downsample_fir = fused_downsample_fir
+        self.feature_extractors = feature_extractors
+        self.downsampler = downsampler
+        self.model = model
+        self.fir_delays = fir_delays
+        self.trimming_config = trimming_config
+        self.use_train_test_split = use_train_test_split
+        self.downsample_config = downsample_config or {}
+        self.layer_idx = layer_idx
+        self.lookback = lookback
+        self.dataset_type = dataset_type
+
+        if story_selection is None:
+            self.stories_to_process = self.assembly.stories
+        elif isinstance(story_selection, int):
+            # 1-based single story index.
+            self.stories_to_process = [
+                self.assembly.stories[story_selection - 1]]
+        else:
+            self.stories_to_process = story_selection
+
+        if logger_backend != "none":
+            raise NotImplementedError(
+                f"logger_backend {logger_backend!r} is not ported to "
+                "litcoder_core_torch yet (see ROADMAP.md); use 'none'"
+            )
+        self.experiment_logger = NullLogger()
+        self.model_saver = ModelSaver(base_dir=results_dir)
+
+    # ------------------------------------------------------------ stage 1
+
+    def _extract_single_features(self, extractor, story: str, idx: int):
+        return FeatureExtractorFactory.extract_features_with_caching(
+            extractor, self.assembly, story, idx, self.layer_idx,
+            self.lookback, self.dataset_type,
+        )
+
+    def _should_downsample(self, extractor) -> bool:
+        """Wordrate features are already TR-binned."""
+        return "wordrate" not in extractor.__class__.__name__.lower()
+
+    def extract_and_downsample_features(self) -> Dict[str, torch.Tensor]:
+        """Per-story extraction + downsampling (two-stage path)."""
+        all_features = {}
+        for story in self.stories_to_process:
+            idx = self.assembly.stories.index(story)
+            story_features = []
+            for extractor in self.feature_extractors:
+                features = self._extract_single_features(extractor, story, idx)
+                if self._should_downsample(extractor):
+                    features = self.downsampler.downsample(
+                        data=features,
+                        data_times=self.assembly.get_data_times()[idx],
+                        tr_times=self.assembly.get_tr_times()[idx],
+                        split_indices=self.assembly.get_split_indices()[idx],
+                        device=self.device,
+                        **self.downsample_config,
+                    )
+                story_features.append(as_f32(features, self.device))
+            min_len = min(f.shape[0] for f in story_features)
+            all_features[story] = torch.cat(
+                [f[:min_len] for f in story_features], dim=1)
+            logger.info("Story %s: feature shape %s", story,
+                        tuple(all_features[story].shape))
+        return all_features
+
+    # ------------------------------------------------- fused stages 1+2
+
+    def _fused_eligible(self) -> bool:
+        """True when the fused kernel equals Downsampler('lanczos') followed
+        by FIR.make_delayed: lanczos without rectify, window and cutoff_mult
+        given, all FIR delays positive (so per-story truncation commutes
+        with the delay stacking)."""
+        if not self.fused_downsample_fir:
+            return False
+        eligible = (
+            self.downsample_config.get("method") == "lanczos"
+            and "window" in self.downsample_config
+            and "cutoff_mult" in self.downsample_config
+            and not self.downsample_config.get("rectify", False)
+            and bool(self.fir_delays)
+            and all(int(d) > 0 for d in self.fir_delays)
+        )
+        if self.fused_downsample_fir is True and not eligible:
+            raise ValueError(
+                "fused_downsample_fir=True requires downsample method "
+                "'lanczos' (rectify=False) with explicit window/"
+                "cutoff_mult and strictly positive fir_delays; got "
+                f"config={self.downsample_config!r}, "
+                f"delays={self.fir_delays}"
+            )
+        return eligible
+
+    def extract_and_delay_features_fused(self) -> Dict[str, torch.Tensor]:
+        """Stages 1+2 with one kernel launch per story and downsampled
+        extractor. Equal to extract_and_downsample_features() followed by
+        apply_fir_delays(): blocks are cut to the common story length and
+        re-interleaved by delay, so the column order is that of
+        FIR.make_delayed(hstack(spaces))."""
+        delays = [int(d) for d in self.fir_delays]
+        n_delays = len(delays)
+        window = self.downsample_config["window"]
+        cutoff_mult = self.downsample_config["cutoff_mult"]
+
+        all_delayed = {}
+        for story in self.stories_to_process:
+            idx = self.assembly.stories.index(story)
+            tr_times = self.assembly.get_tr_times()[idx]
+            spaces = []
+            for extractor in self.feature_extractors:
+                features = self._extract_single_features(extractor, story, idx)
+                if self._should_downsample(extractor):
+                    block = lanczos_fir(
+                        features, self.assembly.get_data_times()[idx],
+                        tr_times, delays=delays, window=window,
+                        cutoff_mult=cutoff_mult, device=self.device,
+                    )
+                else:
+                    block = FIR.make_delayed(as_f32(features, self.device),
+                                             delays)
+                spaces.append(block)
+            # With strictly positive delays make_delayed(f[:m]) equals
+            # make_delayed(f)[:m], so aligning after the FIR is exact.
+            min_len = min(b.shape[0] for b in spaces)
+            if len(spaces) == 1:
+                combined = spaces[0][:min_len]
+            else:
+                combined = torch.cat(
+                    [b[:min_len].reshape(min_len, n_delays, -1)
+                     for b in spaces], dim=2,
+                ).reshape(min_len, -1)
+            all_delayed[story] = combined
+            logger.info("Story %s (fused): delayed shape %s", story,
+                        tuple(combined.shape))
+        return all_delayed
+
+    # ------------------------------------------------------------ stage 2
+
+    def apply_fir_delays(
+        self, features: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        return {story: FIR.make_delayed(feat, self.fir_delays)
+                for story, feat in features.items()}
+
+    # ------------------------------------------------------------ stage 3
+
+    def structure_data(self, features: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        brain_data = {
+            story: as_f32(self.assembly.get_brain_data()[
+                self.assembly.stories.index(story)], self.device)
+            for story in self.stories_to_process
+        }
+        if self.use_train_test_split:
+            return self._create_train_test_split(features, brain_data)
+        return self._create_concatenated_data(features, brain_data)
+
+    def _create_train_test_split(self, features: Dict, brain_data: Dict
+                                 ) -> Dict[str, torch.Tensor]:
+        """LeBel style: the last story is held out; per-story z-score, trim,
+        then vstack."""
+        stories = list(features.keys())
+        train_stories, test_stories = stories[:-1], stories[-1:]
+        cfg = self.trimming_config
+
+        def stack(source, story_list, lo_key, hi_key):
+            return torch.vstack([
+                trainer_zscore(source[s][cfg.get(lo_key, 0):
+                                         cfg.get(hi_key, None)])
+                for s in story_list
+            ])
+
+        X_train = torch.nan_to_num(stack(features, train_stories,
+                                         "train_features_start",
+                                         "train_features_end"))
+        Y_train = stack(brain_data, train_stories, "train_targets_start",
+                        "train_targets_end")
+        X_test = torch.nan_to_num(stack(features, test_stories,
+                                        "test_features_start",
+                                        "test_features_end"))
+        Y_test = stack(brain_data, test_stories, "test_targets_start",
+                       "test_targets_end")
+        logger.info("Train: X%s Y%s | Test: X%s Y%s", tuple(X_train.shape),
+                    tuple(Y_train.shape), tuple(X_test.shape),
+                    tuple(Y_test.shape))
+        return {"Rstim": X_train, "Rresp": Y_train,
+                "Pstim": X_test, "Presp": Y_test}
+
+    def _create_concatenated_data(self, features: Dict, brain_data: Dict
+                                  ) -> Dict[str, torch.Tensor]:
+        """LPP/Narratives style: concatenate in story order, trim globally."""
+        cfg = self.trimming_config
+        X = torch.vstack([features[s] for s in self.stories_to_process])
+        Y = torch.vstack([brain_data[s] for s in self.stories_to_process])
+        X = X[cfg.get("features_start", 0):cfg.get("features_end", None)]
+        Y = Y[cfg.get("targets_start", 0):cfg.get("targets_end", None)]
+        logger.info("Final: X%s Y%s", tuple(X.shape), tuple(Y.shape))
+        return {"X": X, "Y": Y}
+
+    # ------------------------------------------------------------ stages 4-5
+
+    def train(self, **model_kwargs) -> Dict[str, Any]:
+        """Run the complete pipeline with per-stage wall-clock accounting;
+        on a card each stage ends in a synchronize, so the split is real."""
+        timer = StageTimer(sync_fn=synchronizer(self.device))
+        if self._fused_eligible():
+            with timer.stage("extract_downsample_fir_fused"):
+                delayed = self.extract_and_delay_features_fused()
+        else:
+            with timer.stage("extract_and_downsample"):
+                features = self.extract_and_downsample_features()
+            with timer.stage("fir_delays"):
+                delayed = self.apply_fir_delays(features)
+        with timer.stage("structure_data"):
+            data = self.structure_data(delayed)
+
+        logger.info("Starting model training...")
+        with timer.stage("fit_predict"):
+            if "Rstim" in data:
+                metrics, weights, best_alphas = self.model.fit_predict(
+                    features=data["Rstim"], targets=data["Rresp"],
+                    X_test=data["Pstim"], y_test=data["Presp"],
+                    **model_kwargs,
+                )
+            else:
+                metrics, weights, best_alphas = self.model.fit_predict(
+                    features=data["X"], targets=data["Y"], **model_kwargs,
+                )
+
+        with timer.stage("log_and_save"):
+            self.log_metrics(metrics)
+            self.save_model(weights, best_alphas, metrics, model_kwargs)
+        stage_seconds = timer.report()
+        for name, dt in stage_seconds.items():
+            self.experiment_logger.log_scalar(f"stage_seconds/{name}", dt)
+        metrics["trainer_stage_seconds"] = dict(stage_seconds)
+        logger.info("Training complete. Median correlation: %.4f",
+                    metrics["median_score"])
+        return metrics
+
+    def log_metrics(self, metrics: Dict):
+        log = self.experiment_logger
+        log.log_scalar("median_correlation", float(metrics["median_score"]))
+        log.log_scalar("mean_correlation", float(metrics["mean_score"]))
+        log.log_scalar("std_correlation", float(metrics["std_score"]))
+        if "n_significant" in metrics:
+            log.log_scalar("n_significant_voxels",
+                           float(metrics["n_significant"]))
+
+    def save_model(self, weights, best_alphas, metrics, model_kwargs):
+        hyperparams = {
+            "fir_delays": self.fir_delays,
+            "trimming_config": self.trimming_config,
+            "use_train_test_split": self.use_train_test_split,
+            "downsample_config": self.downsample_config,
+            "layer_idx": self.layer_idx,
+            "lookback": self.lookback,
+            "dataset_type": self.dataset_type,
+            "stories_processed": len(self.stories_to_process),
+            **model_kwargs,
+        }
+        self.model_saver.save_encoding_model(
+            weights=weights, best_alphas=best_alphas,
+            hyperparams=hyperparams, metrics=metrics,
+        )

@@ -1,0 +1,45 @@
+"""Device resolution shared by the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU. A request
+for CUDA on a machine without a usable card raises: nothing falls back to
+the CPU behind the caller's back.
+"""
+
+import numpy as np
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; raises when CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was requested but torch finds no CUDA "
+            "device; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(device)!r}")
+    return dev
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """Float32 tensor on `device` from a numpy array, list or tensor (no
+    copy when `x` already is one there)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """Host numpy copy of a tensor (or array-like)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def synchronizer(device: torch.device):
+    """Barrier for stage timing: CUDA work is asynchronous, so a stage's
+    wall time is only real once the card has finished it."""
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return None

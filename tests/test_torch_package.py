@@ -1,0 +1,132 @@
+"""Import hygiene and device rules of litcoder_core_torch.
+
+The port imports torch and never jax or litcoder_core_tpu (importing any
+submodule of the JAX package runs its __init__, which pulls in jax), and
+its entry points run on the card unless the caller asks for the CPU: with
+no card they raise instead of falling back."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import litcoder_core_torch
+from litcoder_core_torch import (
+    AbstractTrainer,
+    Downsampler,
+    NestedCVModel,
+    SimpleNeuroidAssembly,
+    StoryData,
+    fit_nested_cv,
+)
+from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "litcoder_core_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _modules():
+    names = ["litcoder_core_torch"]
+    for info in pkgutil.walk_packages(litcoder_core_torch.__path__,
+                                      "litcoder_core_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    names = _modules()
+    assert "litcoder_core_torch.trainer" in names
+    assert "litcoder_core_torch.ops.lanczos_fir" in names
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('litcoder_core_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "litcoder_core_tpu"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def _tiny_assembly():
+    rng = np.random.default_rng(0)
+    stories = []
+    for i in range(2):
+        dt = np.sort(rng.uniform(0, 40, 50))
+        stories.append(StoryData(
+            name=f"s{i}", brain_data=rng.normal(size=(20, 3)),
+            stimuli=["a"] * 50, split_indices=(dt // 2).astype(int).tolist(),
+            tr_times=np.arange(20) * 2.0 + 1.0, data_times=dt,
+            word_rates=np.ones(20), words=["a"] * 50))
+    return SimpleNeuroidAssembly(stories, validation_method="outer")
+
+
+def _entry_points(tmp_path):
+    X = np.zeros((40, 2), np.float32)
+    Y = np.zeros((40, 2), np.float32)
+    return {
+        "AbstractTrainer": lambda: AbstractTrainer(
+            _tiny_assembly(), [], Downsampler(), None, [1], {},
+            results_dir=str(tmp_path)),
+        "NestedCVModel.fit_predict": lambda: NestedCVModel().fit_predict(
+            X, Y, X_test=X, y_test=Y, chunk_length=4, n_inner_folds=2),
+        "fit_nested_cv": lambda: fit_nested_cv(X, Y, X, Y, chunk_length=4,
+                                               n_inner_folds=2),
+        "lanczos_fir": lambda: lanczos_fir(np.zeros((5, 2)), np.arange(5.0),
+                                           np.arange(3.0)),
+        "Downsampler.downsample": lambda: Downsampler().downsample(
+            np.zeros((5, 2)), np.arange(5.0), np.arange(3.0),
+            method="lanczos", window=3, cutoff_mult=1.0),
+    }
+
+
+@pytest.mark.parametrize("name", ["AbstractTrainer",
+                                  "NestedCVModel.fit_predict",
+                                  "fit_nested_cv", "lanczos_fir",
+                                  "Downsampler.downsample"])
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """With no card, the default device raises; nothing runs on the CPU.
+    (torch.cuda.is_available is forced False so the test means the same
+    on a machine that has one.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points(tmp_path)[name]()
+
+
+def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out

@@ -1,0 +1,248 @@
+"""Port parity for the trainer slice: litcoder_core_torch.AbstractTrainer on
+the CPU against the JAX AbstractTrainer, on the synthetic stories of
+tests/test_trainer_e2e.py cut to the LeBel layout (brain data of n_TR - 15
+rows, the trimming of examples/train_simple.py), with wordrate and static
+embeddings as features. Also the state carried between the packages:
+assemblies, .kv bundles and saved runs."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import litcoder_core_tpu as J
+import litcoder_core_torch as T
+from litcoder_core_torch.assembly.convert import assembly_from_reference
+from litcoder_core_torch.features.embeddings import SimpleKeyedVectors
+from litcoder_core_torch.utils.saver import ModelSaver
+from tests.test_trainer_e2e import _make_story
+
+torch.set_num_threads(2)
+
+LEBEL_TRIM = {
+    "train_features_start": 10, "train_features_end": -5,
+    "train_targets_start": 0, "train_targets_end": None,
+    "test_features_start": 50, "test_features_end": -5,
+    "test_targets_start": 40, "test_targets_end": None,
+}
+LANCZOS = {"method": "lanczos", "window": 3, "cutoff_mult": 1.0}
+FIT = dict(chunk_length=10, n_inner_folds=3)
+
+
+@pytest.fixture(scope="module")
+def jax_assembly():
+    stories = []
+    for i in range(4):
+        sd = _make_story(f"lebel{i}", n_trs=120)
+        stories.append(dataclasses.replace(sd,
+                                           brain_data=sd.brain_data[10:-5]))
+    return J.SimpleNeuroidAssembly(stories, validation_method="outer")
+
+
+@pytest.fixture(scope="module")
+def kv_path(jax_assembly, tmp_path_factory):
+    from litcoder_core_tpu.features.embeddings import (
+        SimpleKeyedVectors as JaxKV,
+    )
+
+    n = max(len(sd.words) for sd in jax_assembly.story_data.values())
+    vecs = np.random.default_rng(11).normal(size=(n, 6)).astype(np.float32)
+    path = str(tmp_path_factory.mktemp("kv") / "vecs.kv")
+    JaxKV([f"w{i}" for i in range(n)], vecs).save_kv(path)
+    return path
+
+
+def _trainer(pkg, assembly, kv_path, results_dir, **overrides):
+    """The same configuration for either package (`pkg` is J or T)."""
+    cfg = {"vector_path": kv_path, "lowercase": False}
+    extractors = [
+        pkg.FeatureExtractorFactory.create_extractor("wordrate", "wordrate",
+                                                     {}),
+        pkg.FeatureExtractorFactory.create_extractor("embeddings", "vecs",
+                                                     dict(cfg)),
+    ]
+    kwargs = dict(
+        assembly=assembly, feature_extractors=extractors,
+        downsampler=pkg.Downsampler(),
+        model=(pkg.NestedCVModel(seed=0, device="cpu") if pkg is T
+               else pkg.NestedCVModel(seed=0)),
+        fir_delays=[1, 2, 3, 4], trimming_config=dict(LEBEL_TRIM),
+        use_train_test_split=True, dataset_type="lebel",
+        logger_backend="none", results_dir=str(results_dir),
+        downsample_config=dict(LANCZOS),
+    )
+    if pkg is T:
+        kwargs["device"] = "cpu"
+    kwargs.update(overrides)
+    return pkg.AbstractTrainer(**kwargs)
+
+
+@pytest.fixture(scope="module")
+def runs(jax_assembly, kv_path, tmp_path_factory):
+    """(jax trainer, jax metrics, port trainer, port metrics)."""
+    out = tmp_path_factory.mktemp("runs")
+    jt = _trainer(J, jax_assembly, kv_path, out / "jax")
+    tt = _trainer(T, assembly_from_reference(jax_assembly), kv_path,
+                  out / "torch")
+    return jt, jt.train(**FIT), tt, tt.train(**FIT)
+
+
+def test_assembly_from_reference(jax_assembly):
+    asm = assembly_from_reference(jax_assembly)
+    assert isinstance(asm, T.SimpleNeuroidAssembly)
+    assert asm.stories == jax_assembly.stories
+    assert asm.get_validation_method() == "outer"
+    np.testing.assert_array_equal(asm.data, jax_assembly.data)
+    for got, want in zip(asm.get_data_times(), jax_assembly.get_data_times()):
+        np.testing.assert_array_equal(got, want)
+    assert asm.get_words() == jax_assembly.get_words()
+
+
+def test_fused_features_match_jax(runs):
+    jt, _, tt, _ = runs
+    want = jt.extract_and_delay_features_fused()
+    got = tt.extract_and_delay_features_fused()
+    assert set(got) == set(want)
+    for story in want:
+        assert tuple(got[story].shape) == want[story].shape == (120, 28)
+        np.testing.assert_allclose(got[story].numpy(),
+                                   np.asarray(want[story]), atol=1e-4)
+
+
+def test_train_test_split_matches_jax(runs):
+    _, mj, _, mt = runs
+    assert mt["best_alphas"] == mj["best_alphas"]
+    assert abs(mt["median_score"] - mj["median_score"]) <= 1e-3
+    np.testing.assert_allclose(mt["correlations"], mj["correlations"],
+                               atol=2e-3)
+    assert set(mt) == set(mj)
+    assert mt["solver_paths"] == mj["solver_paths"] == {
+        "mode": "train_test", "alpha_search": "chol", "fast_scan": "off"}
+    assert set(mt["trainer_stage_seconds"]) == {
+        "extract_downsample_fir_fused", "structure_data", "fit_predict",
+        "log_and_save"}
+    assert mt["median_score"] > 0.25  # the word-rate signal is recovered
+
+
+def test_fused_matches_two_stage_in_the_port(jax_assembly, kv_path,
+                                             tmp_path):
+    asm = assembly_from_reference(jax_assembly)
+    fused = _trainer(T, asm, kv_path, tmp_path, fused_downsample_fir=True)
+    two = _trainer(T, asm, kv_path, tmp_path, fused_downsample_fir=False)
+    assert fused._fused_eligible() and not two._fused_eligible()
+    want = two.apply_fir_delays(two.extract_and_downsample_features())
+    got = fused.extract_and_delay_features_fused()
+    for story in want:
+        np.testing.assert_allclose(got[story].numpy(), want[story].numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("config,delays", [
+    ({"method": "lanczos", "window": 3, "cutoff_mult": 1.0,
+      "rectify": True}, [1, 2]),
+    ({"method": "lanczos", "window": 3}, [1, 2]),
+    (dict(LANCZOS), [0, 1]),
+])
+def test_fused_eligibility(jax_assembly, kv_path, tmp_path, config, delays):
+    asm = assembly_from_reference(jax_assembly)
+    auto = _trainer(T, asm, kv_path, tmp_path, downsample_config=config,
+                    fir_delays=delays)
+    assert not auto._fused_eligible()
+    forced = _trainer(T, asm, kv_path, tmp_path, downsample_config=config,
+                      fir_delays=delays, fused_downsample_fir=True)
+    with pytest.raises(ValueError, match="fused_downsample_fir"):
+        forced._fused_eligible()
+
+
+def test_concatenated_structuring_matches_jax(jax_assembly, kv_path,
+                                              tmp_path):
+    trim = {"features_start": 3, "features_end": -2, "targets_start": 3,
+            "targets_end": -2}
+    jt = _trainer(J, jax_assembly, kv_path, tmp_path / "j",
+                  use_train_test_split=False, trimming_config=trim,
+                  device_resident=False)
+    tt = _trainer(T, assembly_from_reference(jax_assembly), kv_path,
+                  tmp_path / "t", use_train_test_split=False,
+                  trimming_config=trim)
+    want = jt.structure_data(jt.extract_and_delay_features_fused())
+    got = tt.structure_data(tt.extract_and_delay_features_fused())
+    for key in ("X", "Y"):
+        np.testing.assert_allclose(got[key].numpy(), want[key], atol=1e-4)
+
+
+def test_kv_bundles_cross_packages(kv_path, tmp_path):
+    from litcoder_core_tpu.features.embeddings import (
+        SimpleKeyedVectors as JaxKV,
+    )
+
+    kv = SimpleKeyedVectors.load_kv(kv_path)  # written by the JAX package
+    jkv = JaxKV.load_kv(kv_path)
+    assert kv.index_to_key == jkv.index_to_key
+    np.testing.assert_array_equal(kv.vectors, jkv.vectors)
+    path = str(tmp_path / "port.kv")
+    kv.save_kv(path)
+    back = JaxKV.load_kv(path)
+    assert back.index_to_key == kv.index_to_key
+    np.testing.assert_array_equal(back.vectors, kv.vectors)
+
+
+def test_saved_runs_cross_packages(runs, tmp_path):
+    from litcoder_core_tpu.utils.saver import ModelSaver as JaxSaver
+
+    _, _, tt, mt = runs
+    (run_dir,) = list(tt.model_saver.base_dir.glob("run_*"))
+    w, alphas, hyper, metrics = JaxSaver(str(tmp_path)).load_encoding_model(
+        run_dir)
+    assert w is None and hyper["dataset_type"] == "lebel"
+    np.testing.assert_array_equal(alphas, mt["best_alphas"])
+    assert metrics["correlations"] == mt["correlations"]
+
+    weights = np.arange(12, dtype=np.float32).reshape(3, 4)
+    jdir = JaxSaver(str(tmp_path / "j")).save_encoding_model(
+        weights, np.ones(4), {"a": 1}, {"median_score": 0.5},
+        save_weights=True)
+    w, alphas, hyper, metrics = ModelSaver(str(tmp_path)).load_encoding_model(
+        jdir)
+    np.testing.assert_array_equal(w, weights)
+    assert hyper == {"a": 1} and metrics == {"median_score": 0.5}
+    tdir = ModelSaver(str(tmp_path / "t")).save_encoding_model(
+        torch.as_tensor(weights), torch.ones(4), {"a": 1}, {"m": 1},
+        save_weights=True)
+    w, _, _, _ = JaxSaver(str(tmp_path)).load_encoding_model(tdir)
+    np.testing.assert_array_equal(w, weights)
+
+
+def test_unported_trainer_options_raise(jax_assembly, kv_path, tmp_path):
+    asm = assembly_from_reference(jax_assembly)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _trainer(T, asm, kv_path, tmp_path, logger_backend="tensorboard")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.Downsampler().downsample(np.zeros((3, 1)), np.arange(3.0),
+                                   np.arange(2.0), method="average",
+                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.FeatureExtractorFactory.create_extractor("language_model", "m", {})
+
+
+@pytest.mark.parametrize("oov", ["copy_prev", "zero", "skip", "error"])
+def test_embedding_oov_policies_match_jax(kv_path, oov):
+    from litcoder_core_tpu.features.embeddings import (
+        StaticEmbeddingFeatureExtractor as JaxEmb,
+    )
+    from litcoder_core_torch.features.embeddings import (
+        StaticEmbeddingFeatureExtractor,
+    )
+
+    cfg = {"vector_path": kv_path, "oov_handling": oov,
+           "l2_normalize_tokens": True}
+    tokens = ["nope", "W3", "w1", "zzz", "w2", 7]
+    port, ref = StaticEmbeddingFeatureExtractor(dict(cfg)), JaxEmb(dict(cfg))
+    if oov == "error":
+        with pytest.raises(KeyError):
+            port.extract_features(tokens)
+        return
+    np.testing.assert_array_equal(port.extract_features(tokens),
+                                  ref.extract_features(tokens))
+    np.testing.assert_array_equal(port.extract_features("W1 w2, x w3"),
+                                  ref.extract_features("W1 w2, x w3"))
