@@ -8,9 +8,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
      reports them.
   2. build: nvcc builds csrc/lanczos_fir.cu from the checkout.
   3. kernel: the fused Lanczos+FIR CUDA kernel against its plain torch
-     version on the card, at the trainer's main shape and at the shapes of
-     tests/test_pallas_kernels.py (atol 1e-4, the bar the TPU kernel met
-     against the two-stage path); times at the main shape.
+     version on the card (atol 1e-4, the bar the TPU kernel met against the
+     two-stage path), at the trainer's main shape, at the main shape with
+     word times permuted, with a 60 s silent gap and with descending TR
+     times, at the shapes of tests/test_pallas_kernels.py and at one shape
+     of two scan passes; the word tiles each launch visits beside the dense
+     count. Times at the main shape: the kernel and torch.matmul(K_all,
+     data) each as back-to-back launches between one pair of CUDA events,
+     rotating over 12 operand sets (12 x 8.9 MB > the 50 MB L2, so each
+     launch finds its operands cold), and as single calls.
   4. small parity: the port's AbstractTrainer on a small synthetic assembly,
      on the card and on the CPU: same alphas, correlations within 2e-3,
      median r within 1e-3.
@@ -48,7 +54,21 @@ TEST_SHAPES = [
     (90, 7, 25, (0, 1, 2, -1), 60.0),
     (4600, 3, 512, (1, 2), 1000.0),
 ]
+# Shapes for the kernel's other paths: float4 columns over two scan passes
+# (more than 4096 words) with a negative delay.
+PATH_SHAPES = [
+    (4600, 64, 512, (1, 2, -3), 1000.0),
+]
 KERNEL_ATOL = 1e-4
+GAP_SECONDS = 60.0
+
+# Back-to-back timing: TIMING_SETS distinct operand sets, each launched
+# TIMING_ROUNDS times per timed run. A spin kernel of HOLD_CYCLES clock
+# cycles holds the stream while the host enqueues, so the host's launch
+# overhead does not enter the device time.
+TIMING_SETS = 12
+TIMING_ROUNDS = 10
+HOLD_CYCLES = 20_000_000
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 # float32 outside the tensor cores (the kernel's FMAs).
@@ -114,6 +134,62 @@ def cuda_time_ms(fn, runs=30, warmup=5):
     return float(np.median(times))
 
 
+def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
+    """Device ms per launch: rounds x len(launchers) launches back to back
+    between one pair of CUDA events, cycling over `launchers` (each with
+    its own operands), divided by their number; the median of `repeats`
+    such runs. Raises if the host took longer to enqueue them than the
+    spin kernel held the stream, since the device would then have waited
+    on the host."""
+    import torch
+
+    for fn in launchers:
+        fn()
+    hold = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n = rounds * len(launchers)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        hold.record()
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for fn in launchers:
+                fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        hold_ms = hold.elapsed_time(start)
+        if host_ms >= hold_ms:
+            raise AssertionError(f"enqueueing {n} launches took {host_ms:.2f}"
+                                 f" ms, longer than the {hold_ms:.2f} ms hold")
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def main_shape_cases(rng):
+    """(label, data, word times, TR times) at the main shape: sorted word
+    times; the same permuted; a story with a silent gap of GAP_SECONDS
+    (TR tiles with no live word); descending TR times (negative cutoff)."""
+    t_w, dim, t_tr = (MAIN_SHAPE[k] for k in ("t_w", "dim", "t_tr"))
+    span = t_tr * TR_SECONDS
+    data = rng.normal(size=(t_w, dim)).astype(np.float32)
+    dt, tt = make_times(rng, t_w, t_tr, span)
+    perm = rng.permutation(t_w)
+    gap_dt = np.sort(rng.uniform(0, span - GAP_SECONDS, t_w)).astype(
+        np.float32)
+    gap_dt[gap_dt >= (span - GAP_SECONDS) / 2] += np.float32(GAP_SECONDS)
+    return [
+        ("main", data, dt, tt),
+        ("main, word times permuted", data[perm], dt[perm], tt),
+        (f"main, {GAP_SECONDS:.0f} s silent gap", data, gap_dt, tt),
+        ("main, descending TR times", data, dt, tt[::-1].copy()),
+    ]
+
+
 def kernel_phase(device):
     """Kernel vs plain version on the card; times at the main shape."""
     import torch
@@ -122,13 +198,17 @@ def kernel_phase(device):
     from litcoder_core_torch.ops.interp import lanczos_matrix
 
     rng = np.random.default_rng(0)
+    cases = [(label, MAIN_SHAPE["delays"], data, dt, tt)
+             for label, data, dt, tt in main_shape_cases(rng)]
+    for label, shapes in (("test shape", TEST_SHAPES),
+                          ("path shape", PATH_SHAPES)):
+        for t_w, dim, t_tr, delays, span in shapes:
+            data = rng.normal(size=(t_w, dim)).astype(np.float32)
+            dt, tt = make_times(rng, t_w, t_tr, span)
+            cases.append((label, delays, data, dt, tt))
     max_err = 0.0
-    shapes = [(MAIN_SHAPE["t_w"], MAIN_SHAPE["dim"], MAIN_SHAPE["t_tr"],
-               MAIN_SHAPE["delays"], MAIN_SHAPE["t_tr"] * TR_SECONDS)]
-    for t_w, dim, t_tr, delays, span in shapes + TEST_SHAPES:
-        data = torch.as_tensor(
-            rng.normal(size=(t_w, dim)).astype(np.float32), device=device)
-        dt_np, tt_np = make_times(rng, t_w, t_tr, span)
+    for label, delays, data_np, dt_np, tt_np in cases:
+        data = torch.as_tensor(data_np, device=device)
         dt = torch.as_tensor(dt_np, device=device)
         tt = torch.as_tensor(tt_np, device=device)
         got = lf.lanczos_fir(data, dt, tt, delays, window=3, cutoff_mult=1.0,
@@ -139,28 +219,44 @@ def kernel_phase(device):
             raise AssertionError(f"shape {tuple(got.shape)} != "
                                  f"{tuple(ref.shape)}")
         err = float((got - ref).abs().max())
-        print(f"  kernel vs plain t_w={t_w} d={dim} t_tr={t_tr} "
-              f"delays={delays}: max_abs_err={err:.3e}", flush=True)
+        live = lf.live_word_tiles(dt, tt)
+        print(f"  kernel vs plain, {label} t_w={data.shape[0]} "
+              f"d={data.shape[1]} t_tr={tt.shape[0]} delays={delays}: "
+              f"max_abs_err={err:.3e}; word tiles visited per column slab "
+              f"{int(live.sum())} of {live.numel()} dense", flush=True)
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"by {err} > {KERNEL_ATOL}")
         max_err = max(max_err, err)
 
-    # Times at the main shape.
+    # Times at the main shape (sorted word times), each timing set with its
+    # own copy of every operand.
     t_w, dim, t_tr, delays = (MAIN_SHAPE[k] for k in
                               ("t_w", "dim", "t_tr", "delays"))
-    data = torch.as_tensor(rng.normal(size=(t_w, dim)).astype(np.float32),
-                           device=device)
-    dt_np, tt_np = make_times(rng, t_w, t_tr, t_tr * TR_SECONDS)
+    _, data_np, dt_np, tt_np = main_shape_cases(rng)[0]
+    data = torch.as_tensor(data_np, device=device)
     dt = torch.as_tensor(dt_np, device=device)
     tt = torch.as_tensor(tt_np, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    K_all = lf.shifted_lanczos_stack(dt, tt, delays, 3, 1.0)
+    kernel_sets, library_sets = [], []
+    for _ in range(TIMING_SETS):
+        d = torch.randn((t_w, dim), device=device, generator=gen)
+        dt_i, tt_i = dt.clone(), tt.clone()
+        kernel_sets.append((d, dt_i, tt_i)
+                           + lf.prepare_launch(d, dt_i, tt_i, delays, 1.0))
+        library_sets.append((K_all.clone(), d.clone(), torch.empty(
+            (len(delays) * t_tr, dim), device=device)))
+    ms = back_to_back_ms([lambda s=s: lf.launch(*s, 3) for s in kernel_sets])
+    library_ms = back_to_back_ms(
+        [lambda s=s: torch.matmul(s[0], s[1], out=s[2])
+         for s in library_sets])
     cutoff, delays_t, out = lf.prepare_launch(data, dt, tt, delays, 1.0)
-    ms = cuda_time_ms(lambda: lf.launch(data, dt, tt, cutoff, delays_t, out,
-                                        3))
+    ms_single = cuda_time_ms(lambda: lf.launch(data, dt, tt, cutoff,
+                                               delays_t, out, 3))
+    library_single = cuda_time_ms(lambda: torch.matmul(K_all, data))
     plain_ms = cuda_time_ms(
         lambda: lf.lanczos_fir_reference(data, dt, tt, delays, 3, 1.0))
-    K_all = lf.shifted_lanczos_stack(dt, tt, delays, 3, 1.0)
-    library_ms = cuda_time_ms(lambda: torch.matmul(K_all, data))
 
     # Least time for the same work: each input read once and the output
     # written once, against the FMAs the nonzero Lanczos weights need.
@@ -181,10 +277,15 @@ def kernel_phase(device):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "ms_single_call": ms_single,
+        "library_ms_single_call": library_single,
     }
-    print(f"  main shape t_w={t_w} t_tr={t_tr} d={dim} delays={delays}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, matmul(K_all, "
-          f"data) {library_ms:.4f} ms, bound {record['bound_ms']:.5f} ms "
+    print(f"  main shape t_w={t_w} t_tr={t_tr} d={dim} delays={delays}, "
+          f"back to back over {TIMING_SETS} operand sets: kernel {ms:.5f} ms "
+          f"({record['bound_ms'] / ms:.1%} of the bound), matmul(K_all, "
+          f"data) {library_ms:.5f} ms; single calls: kernel "
+          f"{ms_single:.5f} ms, matmul {library_single:.5f} ms, plain "
+          f"{plain_ms:.5f} ms; bound {record['bound_ms']:.5f} ms "
           f"({record['bound_by']}: {n_bytes} bytes, {n_ops} flop from "
           f"{nnz} nonzero weights)", flush=True)
     return record
@@ -388,7 +489,8 @@ def main() -> int:
     _, report = lf.build()
     print(f"  built {report['path']} in {report['seconds']:.2f} s", flush=True)
     for line in report["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(key in line for key in ("Compiling entry", "registers",
+                                       "spill", "smem")):
             print(f"  ptxas: {line.strip()}", flush=True)
 
     phase("3 kernel vs plain on the card")

@@ -7,9 +7,9 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
 
 The library goes into litcoder_core_torch/_build/ (ignored by git), named
-by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. No --use_fast_math: the kernels call
-sinf and must keep its accuracy.
+by a hash of every source and header under csrc/ and of the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is. No --use_fast_math: the kernels call sinf and must keep its accuracy.
 """
 
 import ctypes
@@ -49,10 +49,19 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for csrc/<name>.cu is kept, keyed by content."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """Where the library for csrc/<name>.cu is kept, keyed by the content of
+    every *.cu and *.cuh file under csrc/ (a header may be included by any
+    source) and by the flags."""
+    source = CSRC_DIR / f"{name}.cu"
+    if not source.is_file():
+        raise FileNotFoundError(f"no CUDA source {source}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    files = sorted(p for pattern in ("*.cu", "*.cuh")
+                   for p in CSRC_DIR.rglob(pattern))
+    for path in files:
+        h.update(str(path.relative_to(CSRC_DIR)).encode() + b"\0")
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, source: Path, output: Path) -> List[str]:

@@ -9,10 +9,12 @@ plain version for the CPU only, the kernel for CUDA (it launches or raises;
 nothing falls back).
 
 `launches` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel. `live_word_tiles` is the plain version of the
+kernel's band skip: which word tiles each block visits.
 """
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -23,6 +25,11 @@ from litcoder_core_torch.utils.device import as_f32, resolve_device
 launches = 0
 
 _KERNEL = "lanczos_fir"
+
+# The kernel's TR rows per block and words per tile (kRows and kTileW in
+# csrc/lanczos_fir.cu).
+TILE_ROWS = 8
+TILE_WORDS = 32
 
 
 def shifted_lanczos_stack(data_times: torch.Tensor, tr_times: torch.Tensor,
@@ -59,6 +66,45 @@ def lanczos_fir_reference(data: torch.Tensor, data_times: torch.Tensor,
     return (out.reshape(len(delays), t_tr, dim)
             .permute(1, 0, 2)
             .reshape(t_tr, len(delays) * dim))
+
+
+def live_word_tiles(data_times: torch.Tensor, tr_times: torch.Tensor,
+                    tile_rows: int = TILE_ROWS, tile_words: int = TILE_WORDS,
+                    window: int = 3, cutoff_mult: float = 1.0) -> torch.Tensor:
+    """(n_tr_tiles, n_word_tiles) bool: the word tiles the kernel visits for
+    each tile of `tile_rows` TR rows.
+
+    Mirrors the kernel's fp32 predicate: word w is live when
+    |(tr - w) * cutoff| > window is false at the tile's smallest or largest
+    TR time, or when w lies between them; a tile is visited when it holds a
+    live word. NaN compares false, so a NaN cutoff leaves every tile live.
+    The extremes skip NaN TR times as fminf/fmaxf do."""
+    data_times = data_times.to(torch.float32)
+    tr_times = tr_times.to(torch.float32)
+    cutoff = lanczos_cutoff(tr_times, cutoff_mult)
+    t_tr, t_w = tr_times.shape[0], data_times.shape[0]
+    n_tr_tiles = math.ceil(t_tr / tile_rows)
+    n_word_tiles = math.ceil(t_w / tile_words)
+    # Padding rows are NaN, which torch.fmin/fmax skip as the kernel skips
+    # rows past T_tr.
+    tr = torch.full((n_tr_tiles * tile_rows,), math.nan)
+    tr[:t_tr] = tr_times.cpu()
+    tr = tr.reshape(n_tr_tiles, tile_rows)
+    lo, hi = tr[:, 0], tr[:, 0]
+    for r in range(1, tile_rows):
+        lo, hi = torch.fmin(lo, tr[:, r]), torch.fmax(hi, tr[:, r])
+    w = data_times.cpu()[None, :]
+    cutoff = cutoff.cpu()
+
+    def outside(edge):
+        return torch.abs((edge[:, None] - w) * cutoff) > window
+
+    live = (~outside(lo) | ~outside(hi)
+            | ((lo[:, None] <= w) & (w <= hi[:, None])))
+    padded = torch.zeros((n_tr_tiles, n_word_tiles * tile_words),
+                         dtype=torch.bool)
+    padded[:, :t_w] = live
+    return padded.reshape(n_tr_tiles, n_word_tiles, tile_words).any(dim=2)
 
 
 def build():
