@@ -11,20 +11,37 @@ Phases, one line each; any failure exits non-zero and prints no result:
      version on the card (atol 1e-4, the bar the TPU kernel met against the
      two-stage path), at the trainer's main shape, at the main shape with
      word times permuted, with a 60 s silent gap and with descending TR
-     times, at the shapes of tests/test_pallas_kernels.py and at one shape
-     of two scan passes; the word tiles each launch visits beside the dense
-     count. Times at the main shape: the kernel and torch.matmul(K_all,
-     data) each as back-to-back launches between one pair of CUDA events,
-     rotating over 12 operand sets (12 x 8.9 MB > the 50 MB L2, so each
-     launch finds its operands cold), and as single calls.
-  4. small parity: the port's AbstractTrainer on a small synthetic assembly,
-     on the card and on the CPU: same alphas, correlations within 2e-3,
-     median r within 1e-3.
+     times, at the shapes of tests/test_pallas_kernels.py, at one shape
+     of two scan passes and at the Narratives 21styear shape (8,434 words,
+     2,249 TRs, D=768, delays 1-8); the word tiles each launch visits beside
+     the dense count. Times at the main and the Narratives shapes: the
+     kernel and torch.matmul(K_all, data) each as back-to-back launches
+     between one pair of CUDA events, rotating over operand sets that
+     together exceed the 50 MB L2 (so each launch finds its operands cold),
+     and as single calls.
+  4. small parity: the port's AbstractTrainer on small synthetic
+     assemblies, on the card and on the CPU, in train/test mode and in
+     concatenated full nested-CV mode on both routes (tall chunked folds:
+     fused; wide kfold_trimmed folds: per-fold with the dual search): same
+     alphas, correlations within 2e-3, median r within 1e-3, the same
+     solver_paths.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
      10 alphas, 5 inner folds, chunks of 20 TRs).
-The last two lines are a JSON record of the kernel and
+  6. Narratives path: AbstractTrainer(use_train_test_split=False).train()
+     on the card at full width: one 21styear-shaped story (2,249 TRs at
+     1.5 s, 768-wide static embeddings, FIR delays 1-8 so D=6144,
+     V=20484), trimmed 14:-9, fitted as README section 3 does
+     (kfold_trimmed, 5 outer x 5 inner folds, single alpha): full nested-CV
+     mode, per-fold route, dual search.
+  7. fused full-CV route at full size: NestedCVModel(device="cuda")
+     .fit_predict(X, Y) on the benchmarks/full_cv.py problem (T=26880,
+     D=3072, V=20484, rank-256 signal plus unit noise, chunked 5 x 5 folds
+     of 20-row chunks, 10 alphas, return_weights=False), built on the card
+     from a seed.
+Each path phase sets the kernel's launch count to 0 just before it runs and
+reads it just after. The last two lines are a JSON record of the kernel and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -62,11 +79,18 @@ PATH_SHAPES = [
 KERNEL_ATOL = 1e-4
 GAP_SECONDS = 60.0
 
-# Back-to-back timing: TIMING_SETS distinct operand sets, each launched
-# TIMING_ROUNDS times per timed run. A spin kernel of HOLD_CYCLES clock
-# cycles holds the stream while the host enqueues, so the host's launch
-# overhead does not enter the device time.
+# The Narratives 21styear story (cli.py's narratives preset, README section
+# 3): 2,249 TRs of 1.5 s, about 2.5 words/s, GPT-2-small width, 8 delays.
+NARR_TR, NARR_TR_SECONDS, NARR_DELAYS = 2249, 1.5, tuple(range(1, 9))
+NARR_WORDS = int(NARR_TR * NARR_TR_SECONDS * 2.5)
+
+# Back-to-back timing: distinct operand sets (TIMING_SETS at the main shape,
+# NARR_TIMING_SETS at the Narratives shape, where each set alone exceeds the
+# L2), each launched TIMING_ROUNDS times per timed run. A spin kernel of
+# HOLD_CYCLES clock cycles holds the stream while the host enqueues, so the
+# host's launch overhead does not enter the device time.
 TIMING_SETS = 12
+NARR_TIMING_SETS = 3
 TIMING_ROUNDS = 10
 HOLD_CYCLES = 20_000_000
 
@@ -93,6 +117,35 @@ LEBEL_TRIM = {
 # rows is about +-0.06 per voxel. A median r above 0.2 shows the fit found
 # the signal without asking it to reach the ceiling.
 MEDIAN_R_FLOOR = 0.2
+
+# Narratives trimming (cli.py's narratives preset) and README section 3's
+# fit: the concatenated story fits in full nested-CV mode.
+NARR_TRIM = {"features_start": 14, "features_end": -9,
+             "targets_start": 14, "targets_end": -9}
+NARR_FIT = dict(folding_type="kfold_trimmed", n_outer_folds=5,
+                n_inner_folds=5, chunk_length=20, single_alpha=True, seed=0)
+NARR_NOISE_STD = 1.0
+# Each outer fold's held-out block is about 435 rows (chance about +-0.1
+# per voxel); with D = 6144 features over about 1,780 training rows ridge
+# recovers only part of the planted signal, so the floor sits well under the
+# printed ceiling while far above chance.
+NARR_MEDIAN_R_FLOOR = 0.25
+
+# The fused full-CV problem of benchmarks/full_cv.py: X (T, D) normal,
+# Y = X W M + unit noise with W (D, 256) / sqrt(D) and M (256, V) / 16, so
+# each voxel's signal variance is about 1 and its r ceiling about 0.707.
+FUSED_T, FUSED_D, FUSED_RANK, FUSED_CHUNK = 26880, 3072, 256, 20
+FUSED_MEDIAN_R_FLOOR = 0.5
+
+EXPECTED_PATHS = {"mode": "train_test", "alpha_search": "chol",
+                  "fast_scan": "off"}
+FUSED_PATHS = {"mode": "full_cv_fused", "alpha_search": "fused_chol",
+               "fast_scan": "off"}
+PER_FOLD_DUAL_PATHS = {"mode": "full_cv_per_fold", "alpha_search": "dual",
+                       "fast_scan": "off"}
+FULL_CV_KEYS = {"majority_significant_mask", "n_majority_significant",
+                "percent_majority_significant", "corrected_p_values",
+                "significant_mask", "n_significant"}
 
 
 def phase(name):
@@ -190,12 +243,86 @@ def main_shape_cases(rng):
     ]
 
 
-def kernel_phase(device):
-    """Kernel vs plain version on the card; times at the main shape."""
+def time_shape(device, data_np, dt_np, tt_np, delays, n_sets):
+    """Times and bound of the kernel at one shape: back to back over
+    `n_sets` operand sets each with its own copy of every operand, single
+    calls, the plain version, and torch.matmul(K_all, data) with the
+    shifted weights precomputed."""
     import torch
 
     from litcoder_core_torch.ops import lanczos_fir as lf
     from litcoder_core_torch.ops.interp import lanczos_matrix
+
+    (t_w, dim), t_tr = data_np.shape, tt_np.shape[0]
+    data = torch.as_tensor(data_np, device=device)
+    dt = torch.as_tensor(dt_np, device=device)
+    tt = torch.as_tensor(tt_np, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    K_all = lf.shifted_lanczos_stack(dt, tt, delays, 3, 1.0)
+    kernel_sets, library_sets = [], []
+    for _ in range(n_sets):
+        d = torch.randn((t_w, dim), device=device, generator=gen)
+        dt_i, tt_i = dt.clone(), tt.clone()
+        kernel_sets.append((d, dt_i, tt_i)
+                           + lf.prepare_launch(d, dt_i, tt_i, delays, 1.0))
+        library_sets.append((K_all.clone(), d.clone(), torch.empty(
+            (len(delays) * t_tr, dim), device=device)))
+    rounds = TIMING_ROUNDS * TIMING_SETS // n_sets
+    ms = back_to_back_ms([lambda s=s: lf.launch(*s, 3) for s in kernel_sets],
+                         rounds=rounds)
+    library_ms = back_to_back_ms(
+        [lambda s=s: torch.matmul(s[0], s[1], out=s[2])
+         for s in library_sets], rounds=rounds)
+    del kernel_sets, library_sets
+    cutoff, delays_t, out = lf.prepare_launch(data, dt, tt, delays, 1.0)
+    ms_single = cuda_time_ms(lambda: lf.launch(data, dt, tt, cutoff,
+                                               delays_t, out, 3))
+    library_single = cuda_time_ms(lambda: torch.matmul(K_all, data))
+    plain_ms = cuda_time_ms(
+        lambda: lf.lanczos_fir_reference(data, dt, tt, delays, 3, 1.0))
+
+    # Least time for the same work: each input read once and the output
+    # written once, against the FMAs the nonzero Lanczos weights need.
+    nnz = int((lanczos_matrix(dt, tt, 3, 1.0) != 0).sum())
+    n_bytes = 4 * (t_w * dim + t_w + t_tr + t_tr * len(delays) * dim)
+    n_ops = 2 * nnz * dim
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    timing = {
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "ms_single_call": ms_single,
+        "library_ms_single_call": library_single,
+    }
+    print(f"  t_w={t_w} t_tr={t_tr} d={dim} delays={delays}, back to back "
+          f"over {n_sets} operand sets: kernel {ms:.5f} ms "
+          f"({timing['bound_ms'] / ms:.1%} of the bound), matmul(K_all, "
+          f"data) {library_ms:.5f} ms; single calls: kernel "
+          f"{ms_single:.5f} ms, matmul {library_single:.5f} ms, plain "
+          f"{plain_ms:.5f} ms; bound {timing['bound_ms']:.5f} ms "
+          f"({timing['bound_by']}: {n_bytes} bytes, {n_ops} flop from "
+          f"{nnz} nonzero weights)", flush=True)
+    return timing
+
+
+def narratives_shape(rng):
+    """Word features, word times and TR times of one 21styear-shaped
+    story."""
+    data = rng.normal(size=(NARR_WORDS, MAIN_SHAPE["dim"])).astype(
+        np.float32)
+    dt, tt = make_times(rng, NARR_WORDS, NARR_TR, NARR_TR * NARR_TR_SECONDS)
+    return data, dt, tt
+
+
+def kernel_phase(device):
+    """Kernel vs plain version on the card; times at the main and the
+    Narratives shapes."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
 
     rng = np.random.default_rng(0)
     cases = [(label, MAIN_SHAPE["delays"], data, dt, tt)
@@ -206,6 +333,8 @@ def kernel_phase(device):
             data = rng.normal(size=(t_w, dim)).astype(np.float32)
             dt, tt = make_times(rng, t_w, t_tr, span)
             cases.append((label, delays, data, dt, tt))
+    narr = narratives_shape(np.random.default_rng(1))
+    cases.append(("Narratives 21styear shape", NARR_DELAYS) + narr)
     max_err = 0.0
     for label, delays, data_np, dt_np, tt_np in cases:
         data = torch.as_tensor(data_np, device=device)
@@ -228,43 +357,10 @@ def kernel_phase(device):
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"by {err} > {KERNEL_ATOL}")
         max_err = max(max_err, err)
+        del got, ref
 
-    # Times at the main shape (sorted word times), each timing set with its
-    # own copy of every operand.
-    t_w, dim, t_tr, delays = (MAIN_SHAPE[k] for k in
-                              ("t_w", "dim", "t_tr", "delays"))
+    print("  times at the main shape:", flush=True)
     _, data_np, dt_np, tt_np = main_shape_cases(rng)[0]
-    data = torch.as_tensor(data_np, device=device)
-    dt = torch.as_tensor(dt_np, device=device)
-    tt = torch.as_tensor(tt_np, device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    K_all = lf.shifted_lanczos_stack(dt, tt, delays, 3, 1.0)
-    kernel_sets, library_sets = [], []
-    for _ in range(TIMING_SETS):
-        d = torch.randn((t_w, dim), device=device, generator=gen)
-        dt_i, tt_i = dt.clone(), tt.clone()
-        kernel_sets.append((d, dt_i, tt_i)
-                           + lf.prepare_launch(d, dt_i, tt_i, delays, 1.0))
-        library_sets.append((K_all.clone(), d.clone(), torch.empty(
-            (len(delays) * t_tr, dim), device=device)))
-    ms = back_to_back_ms([lambda s=s: lf.launch(*s, 3) for s in kernel_sets])
-    library_ms = back_to_back_ms(
-        [lambda s=s: torch.matmul(s[0], s[1], out=s[2])
-         for s in library_sets])
-    cutoff, delays_t, out = lf.prepare_launch(data, dt, tt, delays, 1.0)
-    ms_single = cuda_time_ms(lambda: lf.launch(data, dt, tt, cutoff,
-                                               delays_t, out, 3))
-    library_single = cuda_time_ms(lambda: torch.matmul(K_all, data))
-    plain_ms = cuda_time_ms(
-        lambda: lf.lanczos_fir_reference(data, dt, tt, delays, 3, 1.0))
-
-    # Least time for the same work: each input read once and the output
-    # written once, against the FMAs the nonzero Lanczos weights need.
-    nnz = int((lanczos_matrix(dt, tt, 3, 1.0) != 0).sum())
-    n_bytes = 4 * (t_w * dim + t_w + t_tr + t_tr * len(delays) * dim)
-    n_ops = 2 * nnz * dim
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_F32_FLOP_PER_S * 1e3
     record = {
         "name": "lanczos_fir",
         "route": "cuda",
@@ -272,50 +368,43 @@ def kernel_phase(device):
         "replaces": "litcoder_core_tpu/ops/pallas_kernels.py:33",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "ms_single_call": ms_single,
-        "library_ms_single_call": library_single,
     }
-    print(f"  main shape t_w={t_w} t_tr={t_tr} d={dim} delays={delays}, "
-          f"back to back over {TIMING_SETS} operand sets: kernel {ms:.5f} ms "
-          f"({record['bound_ms'] / ms:.1%} of the bound), matmul(K_all, "
-          f"data) {library_ms:.5f} ms; single calls: kernel "
-          f"{ms_single:.5f} ms, matmul {library_single:.5f} ms, plain "
-          f"{plain_ms:.5f} ms; bound {record['bound_ms']:.5f} ms "
-          f"({record['bound_by']}: {n_bytes} bytes, {n_ops} flop from "
-          f"{nnz} nonzero weights)", flush=True)
+    record.update(time_shape(device, data_np, dt_np, tt_np,
+                             MAIN_SHAPE["delays"], TIMING_SETS))
+    print("  times at the Narratives 21styear shape:", flush=True)
+    record["narratives_shape"] = time_shape(device, *narr, NARR_DELAYS,
+                                            NARR_TIMING_SETS)
     return record
 
 
 def make_story(rng, name, n_tr, words_per_s, vocab, emb, proj, mix,
-               noise_std, n_vox, story_cls, signal_out=None):
-    """One LeBel-shaped synthetic story: word times at ~words_per_s, brain
-    data of n_tr - 15 rows carrying a low-rank signal of the delayed
-    Lanczos-downsampled embeddings plus Gaussian noise."""
+               noise_std, n_vox, story_cls, signal_out=None,
+               tr_seconds=TR_SECONDS, delays=(1, 2, 3, 4), lebel=True):
+    """One synthetic story: word times at ~words_per_s, brain data carrying
+    a low-rank signal of the delayed Lanczos-downsampled embeddings plus
+    Gaussian noise. LeBel layout: n_tr - 15 rows, row i answering TR i + 10;
+    otherwise (Narratives, LPP) one row per TR."""
     import torch
 
     from litcoder_core_torch.ops.lanczos_fir import lanczos_fir_reference
 
-    span = n_tr * TR_SECONDS
+    span = n_tr * tr_seconds
     n_words = int(rng.integers(int(0.95 * span * words_per_s),
                                int(1.05 * span * words_per_s)))
     data_times = np.sort(rng.uniform(0, span, n_words)).astype(np.float32)
-    tr_times = (np.arange(n_tr) * TR_SECONDS + TR_SECONDS / 2).astype(
+    tr_times = (np.arange(n_tr) * tr_seconds + tr_seconds / 2).astype(
         np.float32)
     word_ids = rng.integers(0, len(vocab), n_words)
     words = [vocab[i] for i in word_ids]
-    split = np.clip((data_times // TR_SECONDS).astype(int), 0, n_tr - 1)
+    split = np.clip((data_times // tr_seconds).astype(int), 0, n_tr - 1)
     low = torch.as_tensor(emb[word_ids] @ proj)
     feats = lanczos_fir_reference(low, torch.as_tensor(data_times),
-                                  torch.as_tensor(tr_times),
-                                  (1, 2, 3, 4)).numpy()
-    signal = (feats @ mix)[10:n_tr - 5]
-    brain = signal + noise_std * rng.standard_normal(
-        (n_tr - 15, n_vox), dtype=np.float32)
+                                  torch.as_tensor(tr_times), delays).numpy()
+    signal = feats @ mix
+    if lebel:
+        signal = signal[10:n_tr - 5]
+    brain = signal + noise_std * rng.standard_normal(signal.shape,
+                                                     dtype=np.float32)
     if signal_out is not None:
         signal_out.append(float(signal.var()))
     return story_cls(
@@ -328,7 +417,8 @@ def make_story(rng, name, n_tr, words_per_s, vocab, emb, proj, mix,
 
 
 def build_assembly(seed, n_stories, n_tr, emb_dim, n_vox, vocab_size,
-                   kv_path, noise_std):
+                   kv_path, noise_std, tr_seconds=TR_SECONDS,
+                   delays=(1, 2, 3, 4), lebel=True):
     """Assembly plus a .kv bundle of random embeddings at kv_path; returns
     (assembly, planted-signal ceiling on r)."""
     from litcoder_core_torch import SimpleNeuroidAssembly, StoryData
@@ -340,20 +430,27 @@ def build_assembly(seed, n_stories, n_tr, emb_dim, n_vox, vocab_size,
     SimpleKeyedVectors(vocab, emb).save_kv(kv_path)
     proj = (rng.standard_normal((emb_dim, SIGNAL_RANK), dtype=np.float32)
             / np.sqrt(emb_dim))
-    mix = (rng.standard_normal((4 * SIGNAL_RANK, n_vox), dtype=np.float32)
-           / np.sqrt(4 * SIGNAL_RANK))
+    n_mix = len(delays) * SIGNAL_RANK
+    mix = (rng.standard_normal((n_mix, n_vox), dtype=np.float32)
+           / np.sqrt(n_mix))
     signal_var = []
     stories = [
         make_story(rng, f"story{i:03d}", n_tr, WORDS_PER_S, vocab, emb,
-                   proj, mix, noise_std, n_vox, StoryData, signal_var)
+                   proj, mix, noise_std, n_vox, StoryData, signal_var,
+                   tr_seconds, delays, lebel)
         for i in range(n_stories)
     ]
     s2 = float(np.mean(signal_var))
-    return (SimpleNeuroidAssembly(stories, validation_method="outer"),
+    return (SimpleNeuroidAssembly(
+                stories, validation_method="outer" if lebel else "inner"),
             float(np.sqrt(s2 / (s2 + noise_std**2))))
 
 
-def make_trainer(assembly, kv_path, device, results_dir):
+def make_trainer(assembly, kv_path, device, results_dir, full_cv=False,
+                 delays=(1, 2, 3, 4)):
+    """The port's trainer with one static-embedding extractor: LeBel
+    train/test structuring, or with `full_cv` the Narratives concatenation
+    (the fit's full nested-CV mode)."""
     from litcoder_core_torch import (
         AbstractTrainer,
         Downsampler,
@@ -369,10 +466,10 @@ def make_trainer(assembly, kv_path, device, results_dir):
         feature_extractors=[emb],
         downsampler=Downsampler(),
         model=NestedCVModel(seed=0, device=device),
-        fir_delays=[1, 2, 3, 4],
-        trimming_config=dict(LEBEL_TRIM),
-        use_train_test_split=True,
-        dataset_type="lebel",
+        fir_delays=list(delays),
+        trimming_config=dict(NARR_TRIM if full_cv else LEBEL_TRIM),
+        use_train_test_split=not full_cv,
+        dataset_type="narratives" if full_cv else "lebel",
         logger_backend="none",
         results_dir=results_dir,
         downsample_config={"method": "lanczos", "window": 3,
@@ -381,11 +478,10 @@ def make_trainer(assembly, kv_path, device, results_dir):
     )
 
 
-EXPECTED_PATHS = {"mode": "train_test", "alpha_search": "chol",
-                  "fast_scan": "off"}
-
-
-def check_metrics(metrics, n_vox, alphas_grid):
+def check_metrics(metrics, n_vox, alphas_grid, paths=EXPECTED_PATHS):
+    """Finite correlations and p-values of the right shape, alphas from the
+    grid (full CV: means over the outer folds, so inside its range), the
+    full-CV keys, and the expected solver paths."""
     corr = np.asarray(metrics["correlations"])
     if corr.shape != (n_vox,) or not np.all(np.isfinite(corr)):
         raise AssertionError(f"correlations: shape {corr.shape}, finite "
@@ -394,37 +490,90 @@ def check_metrics(metrics, n_vox, alphas_grid):
     if not (np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))):
         raise AssertionError("p-values not finite in [0, 1]")
     alphas = np.asarray(metrics["best_alphas"], np.float32)
-    if not np.all(np.isin(alphas, np.asarray(alphas_grid, np.float32))):
-        raise AssertionError("best alphas outside the grid")
-    if metrics["solver_paths"] != EXPECTED_PATHS:
-        raise AssertionError(f"solver_paths {metrics['solver_paths']}")
+    grid = np.asarray(alphas_grid, np.float32)
+    if paths["mode"] == "train_test":
+        if not np.all(np.isin(alphas, grid)):
+            raise AssertionError("best alphas outside the grid")
+    else:
+        if not (np.all(alphas >= grid.min()) and np.all(alphas <= grid.max())):
+            raise AssertionError("mean alphas outside the grid's range")
+        missing = FULL_CV_KEYS - set(metrics)
+        if missing:
+            raise AssertionError(f"full-CV metrics lack {sorted(missing)}")
+    if metrics["solver_paths"] != paths:
+        raise AssertionError(f"solver_paths {metrics['solver_paths']}, "
+                             f"expected {paths}")
 
 
-def small_parity_phase(workdir):
-    """The port's trainer on a small assembly, on the card and the CPU."""
+def card_vs_cpu(label, asm, kv_path, workdir, paths, fit, full_cv=False,
+                delays=(1, 2, 3, 4)):
+    """Train on the card and on the CPU; same alphas, correlations within
+    2e-3, median r within 1e-3, the expected solver paths on both."""
     from litcoder_core_torch.ops import lanczos_fir as lf
 
-    kv_path = os.path.join(workdir, "small.kv")
-    asm, _ = build_assembly(1, 4, 120, 6, 40, 400, kv_path, 1.0)
     results = {}
     for device in ("cuda", "cpu"):
         before = lf.launches
         results[device] = make_trainer(
-            asm, kv_path, device, os.path.join(workdir, f"small_{device}")
-        ).train(chunk_length=10, n_inner_folds=3)
-        check_metrics(results[device], 40, np.logspace(-1, 8, 10))
-        print(f"  {device}: median r {results[device]['median_score']:.6f}, "
-              f"kernel launches {lf.launches - before}", flush=True)
+            asm, kv_path, device, os.path.join(workdir, f"{label}_{device}"),
+            full_cv, delays).train(**fit)
+        n_vox = len(results[device]["correlations"])
+        check_metrics(results[device], n_vox, np.logspace(-1, 8, 10), paths)
+        print(f"  {label}, {device}: median r "
+              f"{results[device]['median_score']:.6f}, solver_paths "
+              f"{results[device]['solver_paths']}, kernel launches "
+              f"{lf.launches - before}", flush=True)
     gpu, cpu = results["cuda"], results["cpu"]
     if gpu["best_alphas"] != cpu["best_alphas"]:
-        raise AssertionError("card and CPU selected different alphas")
+        raise AssertionError(f"{label}: card and CPU selected different "
+                             "alphas")
     dr = float(np.max(np.abs(np.asarray(gpu["correlations"])
                              - np.asarray(cpu["correlations"]))))
     dm = abs(gpu["median_score"] - cpu["median_score"])
-    print(f"  card vs CPU: same alphas, max |dr| {dr:.3e} (bar 2e-3), "
-          f"|d median| {dm:.3e} (bar 1e-3)", flush=True)
+    print(f"  {label}, card vs CPU: same alphas, max |dr| {dr:.3e} (bar "
+          f"2e-3), |d median| {dm:.3e} (bar 1e-3)", flush=True)
     if dr > 2e-3 or dm > 1e-3:
-        raise AssertionError("card and CPU correlations disagree")
+        raise AssertionError(f"{label}: card and CPU correlations disagree")
+
+
+def small_parity_phase(workdir):
+    """The port's trainer on small assemblies, on the card and the CPU: the
+    LeBel train/test split, then the concatenated full-CV mode on its fused
+    route (tall features, chunked folds) and its per-fold route (wide
+    features, kfold_trimmed folds: the dual search)."""
+    kv_path = os.path.join(workdir, "small.kv")
+    asm, _ = build_assembly(1, 4, 120, 6, 40, 400, kv_path, 1.0)
+    card_vs_cpu("train/test", asm, kv_path, workdir, EXPECTED_PATHS,
+                dict(chunk_length=10, n_inner_folds=3))
+
+    kv_path = os.path.join(workdir, "small_tall.kv")
+    asm, _ = build_assembly(2, 4, 120, 6, 40, 400, kv_path, 1.0,
+                            lebel=False)
+    card_vs_cpu("full CV, tall chunked", asm, kv_path, workdir, FUSED_PATHS,
+                dict(chunk_length=10, n_outer_folds=3, n_inner_folds=3),
+                full_cv=True)
+
+    # 2 x 150 TRs trimmed 14:-9: 277 rows, about 177 inner train rows for
+    # 48 x 8 = 384 features.
+    kv_path = os.path.join(workdir, "small_wide.kv")
+    asm, _ = build_assembly(3, 2, 150, 48, 40, 400, kv_path, 1.0,
+                            tr_seconds=NARR_TR_SECONDS, delays=NARR_DELAYS,
+                            lebel=False)
+    card_vs_cpu("full CV, wide kfold_trimmed", asm, kv_path, workdir,
+                PER_FOLD_DUAL_PATHS, dict(NARR_FIT), full_cv=True,
+                delays=NARR_DELAYS)
+
+
+def report_path_run(metrics, wall, peak, smi_line, floor):
+    print(f"  trainer_stage_seconds {json.dumps(metrics['trainer_stage_seconds'])}"
+          f" (train() wall {wall:.3f} s)", flush=True)
+    print(f"  median r {metrics['median_score']:.6f} (floor {floor}), "
+          f"n_significant {metrics['n_significant']}", flush=True)
+    print(f"  solver_paths {metrics['solver_paths']}", flush=True)
+    print(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), "
+          f"card: {smi_line}", flush=True)
+    if not metrics["median_score"] > floor:
+        raise AssertionError(f"median r {metrics['median_score']} <= {floor}")
 
 
 def main_path_phase(workdir, smi_line):
@@ -452,22 +601,95 @@ def main_path_phase(workdir, smi_line):
     peak = torch.cuda.max_memory_allocated()
 
     check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10))
-    print(f"  trainer_stage_seconds {json.dumps(metrics['trainer_stage_seconds'])}"
-          f" (train() wall {wall:.3f} s)", flush=True)
-    print(f"  median r {metrics['median_score']:.6f} (floor "
-          f"{MEDIAN_R_FLOOR}), n_significant {metrics['n_significant']}",
-          flush=True)
-    print(f"  solver_paths {metrics['solver_paths']}", flush=True)
-    print(f"  lanczos_fir launches {launches}, max_memory_allocated "
-          f"{peak} bytes ({peak / 2**30:.2f} GiB), card: {smi_line}",
-          flush=True)
+    print(f"  lanczos_fir launches {launches}", flush=True)
+    report_path_run(metrics, wall, peak, smi_line, MEDIAN_R_FLOOR)
     if launches < N_STORIES:
         raise AssertionError(f"the kernel ran {launches} times, fewer than "
                              f"the {N_STORIES} stories")
-    if not metrics["median_score"] > MEDIAN_R_FLOOR:
-        raise AssertionError(f"median r {metrics['median_score']} <= "
-                             f"{MEDIAN_R_FLOOR}")
     return launches
+
+
+def narratives_phase(workdir, smi_line):
+    """One 21styear-shaped story through AbstractTrainer.train() in
+    concatenated full nested-CV mode at GPT-2-small width."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    kv_path = os.path.join(workdir, "narr768.kv")
+    t0 = time.perf_counter()
+    asm, ceiling = build_assembly(zlib.crc32(b"narratives-21styear"), 1,
+                                  NARR_TR, EMB_DIM, N_VERTICES, VOCAB,
+                                  kv_path, NARR_NOISE_STD,
+                                  tr_seconds=NARR_TR_SECONDS,
+                                  delays=NARR_DELAYS, lebel=False)
+    print(f"  synthetic story: {NARR_TR} TRs of {NARR_TR_SECONDS} s, "
+          f"{len(asm.get_words()[0])} words, {N_VERTICES} vertices, "
+          f"D = {EMB_DIM} x {len(NARR_DELAYS)}, ceiling r {ceiling:.4f}, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    trainer = make_trainer(asm, kv_path, "cuda",
+                           os.path.join(workdir, "narr_results"),
+                           full_cv=True, delays=NARR_DELAYS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train(**NARR_FIT)
+    wall = time.perf_counter() - t0
+    launches = lf.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10),
+                  PER_FOLD_DUAL_PATHS)
+    print(f"  lanczos_fir launches {launches}; n_majority_significant "
+          f"{metrics['n_majority_significant']}", flush=True)
+    report_path_run(metrics, wall, peak, smi_line, NARR_MEDIAN_R_FLOOR)
+    if launches < 1:
+        raise AssertionError("the kernel did not run on the Narratives path")
+    return launches
+
+
+def fused_full_cv_phase(smi_line):
+    """The benchmarks/full_cv.py problem through NestedCVModel.fit_predict
+    in full nested-CV mode: the fused route at full size."""
+    import torch
+
+    from litcoder_core_torch import NestedCVModel
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((FUSED_T, FUSED_D), device=dev, generator=gen)
+    W = torch.randn((FUSED_D, FUSED_RANK), device=dev,
+                    generator=gen) / FUSED_D ** 0.5
+    M = torch.randn((FUSED_RANK, N_VERTICES), device=dev,
+                    generator=gen) / FUSED_RANK ** 0.5
+    Y = (X @ W) @ M
+    Y += torch.randn(Y.shape, device=dev, generator=gen)
+    del W, M
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, weights, _ = NestedCVModel(seed=0, device="cuda").fit_predict(
+        X, Y, chunk_length=FUSED_CHUNK, n_outer_folds=5, n_inner_folds=5,
+        return_weights=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10), FUSED_PATHS)
+    if weights is not None:
+        raise AssertionError("return_weights=False returned weights")
+    print(f"  T={FUSED_T} D={FUSED_D} V={N_VERTICES}: fit_predict wall "
+          f"{wall:.3f} s, median r {metrics['median_score']:.6f} (floor "
+          f"{FUSED_MEDIAN_R_FLOOR}), n_significant "
+          f"{metrics['n_significant']}, n_majority_significant "
+          f"{metrics['n_majority_significant']}", flush=True)
+    print(f"  solver_paths {metrics['solver_paths']}", flush=True)
+    print(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), "
+          f"card: {smi_line}", flush=True)
+    if not metrics["median_score"] > FUSED_MEDIAN_R_FLOOR:
+        raise AssertionError(f"median r {metrics['median_score']} <= "
+                             f"{FUSED_MEDIAN_R_FLOOR}")
 
 
 def main() -> int:
@@ -502,6 +724,12 @@ def main() -> int:
 
         phase("5 main path at full size")
         record["launches"] = main_path_phase(workdir, smi_line)
+
+        phase("6 Narratives path at full width, full nested CV")
+        record["launches_narratives"] = narratives_phase(workdir, smi_line)
+
+    phase("7 fused full-CV route at full size")
+    fused_full_cv_phase(smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

@@ -54,6 +54,21 @@ def pearson_pvalues_f64(r, n: int) -> np.ndarray:
     return np.clip(np.nan_to_num(p, nan=1.0), 0.0, 1.0)
 
 
+def fisher_combine_pvalues_f64(fold_pvalues) -> np.ndarray:
+    """Host float64 Fisher combination over axis 0 (folds), as
+    scipy.stats.combine_pvalues(method='fisher') computes it: a zero p
+    gives log 0, an infinite statistic and a combined p of 0; a voxel whose
+    p-values are all 1 keeps 1."""
+    from scipy.special import gammaincc
+
+    p = np.asarray(fold_pvalues, np.float64)
+    with np.errstate(divide="ignore"):
+        stat = -2.0 * np.sum(np.log(p), axis=0)
+    combined = np.where(np.isinf(stat), 0.0,
+                        gammaincc(float(p.shape[0]), stat / 2.0))
+    return np.where(np.all(p >= 1.0, axis=0), 1.0, combined)
+
+
 def bh_fdrcorrection_np(pvals, alpha: float = 0.05):
     """Host float64 Benjamini-Hochberg step-up, identical to statsmodels
     fdrcorrection(method='indep'). Returns (reject_mask, corrected_pvals)."""

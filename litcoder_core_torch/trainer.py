@@ -1,10 +1,13 @@
 """Pipeline orchestrator (twin of litcoder_core_tpu/trainer.py).
 
 Same flow and constructor contract as the JAX AbstractTrainer: extract ->
-downsample -> FIR -> structure (train/test split or concatenation) ->
-fit_predict -> log/save. Tensors live on `device` from the fused Lanczos+FIR
-kernel through structuring and into the fit; the only host copies are the
-explicit ones for metrics and saving.
+downsample -> FIR -> structure -> fit_predict -> log/save. Structuring is
+the LeBel train/test split (use_train_test_split=True, the fit's train/test
+mode) or the LPP/Narratives concatenation (False: the fit's full nested-CV
+mode, whose metrics add the majority-mask keys and whose weights and alphas
+are the means over the outer folds). Tensors live on `device` from the
+fused Lanczos+FIR kernel through structuring and into the fit; the only
+host copies are the explicit ones for metrics and saving.
 
 Not ported yet (ROADMAP.md): logger backends other than 'none' and the
 brain plots, per-space (banded) features, and the response prefetch.
@@ -254,7 +257,8 @@ class AbstractTrainer:
 
     def _create_concatenated_data(self, features: Dict, brain_data: Dict
                                   ) -> Dict[str, torch.Tensor]:
-        """LPP/Narratives style: concatenate in story order, trim globally."""
+        """LPP/Narratives style: concatenate in story order, trim globally;
+        train() then fits in full nested-CV mode (no test set)."""
         cfg = self.trimming_config
         X = torch.vstack([features[s] for s in self.stories_to_process])
         Y = torch.vstack([brain_data[s] for s in self.stories_to_process])

@@ -129,17 +129,17 @@ def test_ties_go_to_the_first_alpha():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(X_test=None, y_test=None),
+    dict(X_test=None, y_test=None, voxel_chunk_size=8),
     dict(voxel_chunk_size=8),
     dict(fast_scan=True),
     dict(fast_scan="auto"),
-    dict(normalize_features=True),
+    dict(X_test=None, y_test=None, fast_scan=True),
     dict(n_devices=2),
     dict(significance="permutation"),
     dict(method="eigh"),
-    dict(method="dual"),
+    dict(method="svd"),
     dict(normalpha=False),
-    dict(folding_type="kfold"),
+    dict(X_test=None, y_test=None, method="eigh"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_paths_raise(kwargs):
     X, Y, Xt, Yt = _problem(T=100, D=5, V=3, Tp=20)

@@ -46,6 +46,7 @@ def test_every_module_imports_without_jax():
     names = _modules()
     assert "litcoder_core_torch.trainer" in names
     assert "litcoder_core_torch.ops.lanczos_fir" in names
+    assert "litcoder_core_torch.models.normalizer" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -103,6 +104,10 @@ def _entry_points(tmp_path):
             X, Y, X_test=X, y_test=Y, chunk_length=4, n_inner_folds=2),
         "fit_nested_cv": lambda: fit_nested_cv(X, Y, X, Y, chunk_length=4,
                                                n_inner_folds=2),
+        "NestedCVModel.fit_predict (full CV)": lambda: NestedCVModel(
+        ).fit_predict(X, Y, chunk_length=4, n_inner_folds=2),
+        "fit_nested_cv (full CV)": lambda: fit_nested_cv(
+            X, Y, chunk_length=4, n_outer_folds=2, n_inner_folds=2),
         "lanczos_fir": lambda: lanczos_fir(np.zeros((5, 2)), np.arange(5.0),
                                            np.arange(3.0)),
         "Downsampler.downsample": lambda: Downsampler().downsample(
@@ -113,7 +118,9 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("name", ["AbstractTrainer",
                                   "NestedCVModel.fit_predict",
-                                  "fit_nested_cv", "lanczos_fir",
+                                  "fit_nested_cv",
+                                  "NestedCVModel.fit_predict (full CV)",
+                                  "fit_nested_cv (full CV)", "lanczos_fir",
                                   "Downsampler.downsample"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.
