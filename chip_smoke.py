@@ -22,8 +22,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
   4. small parity: the port's AbstractTrainer on small synthetic
      assemblies, on the card and on the CPU, in train/test mode and in
      concatenated full nested-CV mode on both routes (tall chunked folds:
-     fused; wide kfold_trimmed folds: per-fold with the dual search): same
-     alphas, correlations within 2e-3, median r within 1e-3, the same
+     fused; wide kfold_trimmed folds: per-fold with the dual search); then
+     fit_nested_cv on small seeded problems through every other search
+     path: method='eigh' (complement-gram eigh) and 'svd' (spectral),
+     normalpha=False on a wide design (spectral dual), unequal folds (the
+     per-fold loop), voxel chunks in both modes, fast_scan True and 'auto',
+     and permutation significance (the offsets come from a CPU generator,
+     so both devices use the same ones and their p-values must be equal).
+     Same alphas, correlations within 2e-3, median r within 1e-3, the same
      solver_paths.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
@@ -39,15 +45,38 @@ Phases, one line each; any failure exits non-zero and prints no result:
      .fit_predict(X, Y) on the benchmarks/full_cv.py problem (T=26880,
      D=3072, V=20484, rank-256 signal plus unit noise, chunked 5 x 5 folds
      of 20-row chunks, 10 alphas, return_weights=False), built on the card
-     from a seed.
-Each path phase sets the kernel's launch count to 0 just before it runs and
-reads it just after. The last two lines are a JSON record of the kernel and
-{"ok": true, "device": {...}}.
+     from a seed; then the same fit with voxel_chunk_size=4096 (chunked
+     downdate, inner scoring and refit), which must select the same alphas
+     on at least 99.9% of the voxels.
+  8. the north-star whole-brain fit (benchmarks/northstar.py, uncut):
+     T=26880 train and 2048 test rows, D=3072, V=95556, the phase 7
+     generator, NestedCVModel(device="cuda").fit_predict in train/test mode
+     three times: (a) voxel_chunk_size=4096, (b) no voxel chunks, (c) 4096
+     with fast_scan='auto' and 1,000-shift permutation significance; the
+     first 64 voxels carry no signal. (a) and (b) must pick the same alpha
+     on at least 99.9% of the voxels with correlations within 1e-4 where
+     they do; (c) must record its guard's decision, agree with (a) on at
+     least 98% of the voxels when it accepted (correlations within 1e-4
+     where the alphas agree), floor its p-values at 1/1001 and keep the
+     median r within 1e-3 of (a)'s. (c)'s p-values of the first 256 voxels
+     must equal a plain float64 torch.roll null on the same predictions and
+     offsets, and the noise-only voxels must not sit at the floor.
+  9. the eigh search at full width: the phase 8 generator at the surface
+     width V=20484, method='auto' (the Cholesky search) against
+     method='eigh', with chunks of 20 rows (unequal folds: the per-fold
+     loop) and of 21 (equal partition folds: complement-gram eigh): the
+     same alpha on at least 99.9% of the voxels, correlations within 2e-3,
+     median r within 1e-3.
+Phases 5 and 6 set the kernel's launch count to 0 just before they run and
+read it just after; phases 7-9 call the fit directly and print each fit's
+wall, median r, solver_paths and peak device memory. The last two lines
+are a JSON record of the kernel and {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
 """
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -146,6 +175,47 @@ PER_FOLD_DUAL_PATHS = {"mode": "full_cv_per_fold", "alpha_search": "dual",
 FULL_CV_KEYS = {"majority_significant_mask", "n_majority_significant",
                 "percent_majority_significant", "corrected_p_values",
                 "significant_mask", "n_significant"}
+
+# Phase 4's solver cases: seeded problems of 400 train and 100 test rows,
+# D=12 (tall) or 200 rows and D=240 (wide), V=40, chunks of 20 rows in 5
+# inner folds; (label, problem, fit arguments, expected solver_paths).
+SMALL_FIT = dict(chunk_length=20, n_inner_folds=5, seed=0)
+
+
+def _paths(search, fast_scan="off", mode="train_test"):
+    return {"mode": mode, "alpha_search": search, "fast_scan": fast_scan}
+
+
+SOLVER_CASES = [
+    ("method='eigh'", "tall", dict(method="eigh"), _paths("complement_eigh")),
+    ("method='svd'", "tall", dict(method="svd"), _paths("spectral_svd")),
+    ("normalpha=False, wide", "wide", dict(normalpha=False),
+     _paths("spectral_dual")),
+    ("unequal folds", "tall", dict(normalpha=False, chunk_length=7),
+     _paths("per_fold_loop_auto")),
+    ("voxel chunks", "tall", dict(voxel_chunk_size=7), _paths("chol")),
+    ("voxel chunks, eigh", "tall", dict(method="eigh", voxel_chunk_size=7),
+     _paths("complement_eigh")),
+    ("full CV, voxel chunks", "full",
+     dict(voxel_chunk_size=7, n_outer_folds=3, n_inner_folds=3),
+     _paths("fused_chol", mode="full_cv_fused")),
+    ("fast_scan=True", "tall", dict(fast_scan=True), _paths("chol", "bf16")),
+    ("fast_scan='auto'", "tall", dict(fast_scan="auto"),
+     _paths("chol", "auto_accepted")),
+    ("permutation", "tall",
+     dict(significance="permutation", n_permutations=500,
+          voxel_chunk_size=7), _paths("chol")),
+]
+
+# Phases 8-9: benchmarks/northstar.py's LeBel-UTS03 / GPT-2-small problem
+# (26,880 train and 2,048 test TRs, D = 768 x 4 delays) with the phase 7
+# generator, at whole-brain V = 95,556 and at the fsaverage5 surface.
+NS_T, NS_TEST, NS_D, NS_V = 26880, 2048, 3072, 95556
+NS_CHUNK, NS_PERMUTATIONS = 4096, 1000
+# Phase 8 zeroes the signal of its first NS_NULL voxels (pure noise: their
+# permutation p-values must spread over (0, 1]) and holds (c)'s p-values of
+# its first NS_ROLL_BLOCK voxels, those included, against a plain roll null.
+NS_NULL, NS_ROLL_BLOCK = 64, 256
 
 
 def phase(name):
@@ -564,6 +634,50 @@ def small_parity_phase(workdir):
                 delays=NARR_DELAYS)
 
 
+def small_problem(seed, T=400, Tp=100, D=12, V=40):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(T, D)).astype(np.float32)
+    W = (rng.normal(size=(D, V)) * rng.uniform(0.05, 0.5, V)
+         / np.sqrt(max(D / 12, 1.0))).astype(np.float32)
+    Y = (X @ W + rng.normal(size=(T, V))).astype(np.float32)
+    Xt = rng.normal(size=(Tp, D)).astype(np.float32)
+    Yt = (Xt @ W + rng.normal(size=(Tp, V))).astype(np.float32)
+    return X, Y, Xt, Yt
+
+
+def solver_cases_phase():
+    """fit_nested_cv on the card and on the CPU through every search path
+    the trainer cases above do not take."""
+    from litcoder_core_torch import fit_nested_cv
+
+    problems = {"tall": small_problem(11),
+                "wide": small_problem(12, T=200, Tp=60, D=240)}
+    problems["full"] = problems["tall"][:2]
+    for label, problem, kw, paths in SOLVER_CASES:
+        fit = dict(SMALL_FIT, **kw)
+        got = {device: fit_nested_cv(*problems[problem], device=device, **fit)
+               for device in ("cuda", "cpu")}
+        (mg, _, ag), (mc, _, ac) = got["cuda"], got["cpu"]
+        for device, (m, _, _) in got.items():
+            if m["solver_paths"] != paths:
+                raise AssertionError(f"{label}, {device}: solver_paths "
+                                     f"{m['solver_paths']}, expected {paths}")
+        dr = float(np.max(np.abs(np.asarray(mg["correlations"])
+                                 - np.asarray(mc["correlations"]))))
+        dm = abs(mg["median_score"] - mc["median_score"])
+        line = (f"  {label}: {paths['alpha_search']}/{paths['fast_scan']} "
+                f"on both, same alphas {bool(np.array_equal(ag, ac))}, max "
+                f"|dr| {dr:.3e}, |d median| {dm:.3e}")
+        if "significance" in kw:
+            same_p = mg["p_values"] == mc["p_values"]
+            line += f", identical permutation p-values {same_p}"
+            if not same_p or mg.get("significance_method") != "permutation":
+                raise AssertionError(f"{label}: card and CPU p-values differ")
+        print(line, flush=True)
+        if not np.array_equal(ag, ac) or dr > 2e-3 or dm > 1e-3:
+            raise AssertionError(f"{label}: card and CPU fits disagree")
+
+
 def report_path_run(metrics, wall, peak, smi_line, floor):
     print(f"  trainer_stage_seconds {json.dumps(metrics['trainer_stage_seconds'])}"
           f" (train() wall {wall:.3f} s)", flush=True)
@@ -649,47 +763,294 @@ def narratives_phase(workdir, smi_line):
     return launches
 
 
-def fused_full_cv_phase(smi_line):
-    """The benchmarks/full_cv.py problem through NestedCVModel.fit_predict
-    in full nested-CV mode: the fused route at full size."""
+def signal_problem(n_rows, n_voxels, seed, n_null=0):
+    """X (n_rows, D) normal and Y = X W M + unit noise, W (D, 256) / sqrt(D)
+    and M (256, V) / 16 (benchmarks/full_cv.py, benchmarks/northstar.py),
+    built on the card from a seed; the first n_null columns of M are zeroed
+    after the draw, so those voxels are pure noise and the rest unchanged."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((n_rows, FUSED_D), device=dev, generator=gen)
+    W = torch.randn((FUSED_D, FUSED_RANK), device=dev,
+                    generator=gen) / FUSED_D ** 0.5
+    M = torch.randn((FUSED_RANK, n_voxels), device=dev,
+                    generator=gen) / FUSED_RANK ** 0.5
+    M[:, :n_null] = 0.0
+    Y = (X @ W) @ M
+    Y += torch.randn(Y.shape, device=dev, generator=gen)
+    return X, Y
+
+
+def timed_fit(label, smi_line, *args, **kw):
+    """NestedCVModel(device='cuda').fit_predict with its wall (synchronized)
+    and peak device memory (the data included); prints both."""
     import torch
 
     from litcoder_core_torch import NestedCVModel
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    X = torch.randn((FUSED_T, FUSED_D), device=dev, generator=gen)
-    W = torch.randn((FUSED_D, FUSED_RANK), device=dev,
-                    generator=gen) / FUSED_D ** 0.5
-    M = torch.randn((FUSED_RANK, N_VERTICES), device=dev,
-                    generator=gen) / FUSED_RANK ** 0.5
-    Y = (X @ W) @ M
-    Y += torch.randn(Y.shape, device=dev, generator=gen)
-    del W, M
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics, weights, _ = NestedCVModel(seed=0, device="cuda").fit_predict(
-        X, Y, chunk_length=FUSED_CHUNK, n_outer_folds=5, n_inner_folds=5,
-        return_weights=False)
+    fit = {"chunk_length": FUSED_CHUNK, "n_inner_folds": 5,
+           "return_weights": False, **kw}
+    model = NestedCVModel(seed=0, device="cuda")
+    metrics, weights, alphas = model.fit_predict(*args, **fit)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-
-    check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10), FUSED_PATHS)
     if weights is not None:
         raise AssertionError("return_weights=False returned weights")
-    print(f"  T={FUSED_T} D={FUSED_D} V={N_VERTICES}: fit_predict wall "
-          f"{wall:.3f} s, median r {metrics['median_score']:.6f} (floor "
-          f"{FUSED_MEDIAN_R_FLOOR}), n_significant "
-          f"{metrics['n_significant']}, n_majority_significant "
-          f"{metrics['n_majority_significant']}", flush=True)
-    print(f"  solver_paths {metrics['solver_paths']}", flush=True)
-    print(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), "
-          f"card: {smi_line}", flush=True)
-    if not metrics["median_score"] > FUSED_MEDIAN_R_FLOOR:
-        raise AssertionError(f"median r {metrics['median_score']} <= "
-                             f"{FUSED_MEDIAN_R_FLOOR}")
+    corr = np.asarray(metrics["correlations"])
+    p = np.asarray(metrics["p_values"])
+    if not (np.all(np.isfinite(corr)) and np.all((p >= 0) & (p <= 1))):
+        raise AssertionError(f"{label}: non-finite correlations or p-values")
+    print(f"  {label}: fit_predict wall {wall:.3f} s, median r "
+          f"{metrics['median_score']:.6f}, n_significant "
+          f"{metrics['n_significant']}, solver_paths "
+          f"{metrics['solver_paths']}, max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB), card: {smi_line}", flush=True)
+    return metrics, alphas
+
+
+def agreement(label, alphas_a, alphas_b, metrics_a, metrics_b, min_share,
+              corr_atol, where_same=True):
+    """Share of voxels with the same alpha (at least min_share) and the
+    largest correlation gap (where the alphas agree, or everywhere)."""
+    same = np.asarray(alphas_a) == np.asarray(alphas_b)
+    gap = np.abs(np.asarray(metrics_a["correlations"])
+                 - np.asarray(metrics_b["correlations"]))
+    dr = float(np.max(gap[same] if where_same else gap, initial=0.0))
+    dm = abs(metrics_a["median_score"] - metrics_b["median_score"])
+    print(f"  {label}: same alpha on {int(same.sum())} of {same.size} "
+          f"voxels ({same.mean():.4%}; {int((~same).sum())} differ), max "
+          f"|dr| {dr:.3e}{' where they agree' if where_same else ''}, "
+          f"|d median| {dm:.3e}", flush=True)
+    if same.mean() < min_share or dr > corr_atol:
+        raise AssertionError(f"{label}: the fits disagree")
+    return dm
+
+
+def fused_full_cv_phase(smi_line):
+    """The benchmarks/full_cv.py problem through NestedCVModel.fit_predict
+    in full nested-CV mode: the fused route at full size, whole and in
+    voxel chunks."""
+    X, Y = signal_problem(FUSED_T, N_VERTICES, 0)
+    results = {}
+    for chunk in (None, NS_CHUNK):
+        label = (f"T={FUSED_T} D={FUSED_D} V={N_VERTICES}, "
+                 f"voxel_chunk_size={chunk}")
+        metrics, alphas = timed_fit(label, smi_line, X, Y, n_outer_folds=5,
+                                    voxel_chunk_size=chunk)
+        check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10),
+                      FUSED_PATHS)
+        print(f"  n_majority_significant {metrics['n_majority_significant']}"
+              f" (median r floor {FUSED_MEDIAN_R_FLOOR})", flush=True)
+        if not metrics["median_score"] > FUSED_MEDIAN_R_FLOOR:
+            raise AssertionError(f"median r {metrics['median_score']} <= "
+                                 f"{FUSED_MEDIAN_R_FLOOR}")
+        results[chunk] = metrics, alphas
+    agreement("chunked vs whole (mean alphas over the folds)",
+              results[NS_CHUNK][1], results[None][1], results[NS_CHUNK][0],
+              results[None][0], 0.999, 1e-4)
+
+
+# Kernel families of a fit's device time, by substrings of kernel names.
+KERNEL_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma")),
+                   ("cholesky", ("potrf",)), ("triangular solve", ("trsm",)),
+                   ("eigh", ("syev", "stedc", "sytrd", "ormtr", "steqr",
+                             "larft", "larfb")),
+                   ("fft", ("fft",)))
+
+
+def profile_fit(label, smi_line, *args, **kw):
+    """One more fit under torch.profiler: device time of every CUDA kernel,
+    summed by family, the busiest kernels, and their sum over the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        timed_fit(f"{label} under torch.profiler", smi_line, *args, **kw)
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    total = sum(by_name.values())
+    families = {}
+    for name, ms in by_name.items():
+        family = next((f for f, keys in KERNEL_FAMILIES
+                       if any(k in name.lower() for k in keys)), "other")
+        families[family] = families.get(family, 0.0) + ms
+    ranked = dict(sorted(families.items(), key=lambda item: -item[1]))
+    print(f"  {label}, profiled: wall {wall:.3f} s, CUDA kernel time "
+          f"{total:.1f} ms ({total / 1e3 / wall:.1%} of the wall) in "
+          f"{len(by_name)} kernel names; by family (ms): "
+          f"{json.dumps({f: round(ms, 1) for f, ms in ranked.items()})}",
+          flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        print(f"    {ms:10.1f} ms  {name[:90]}", flush=True)
+
+
+def roll_permutation_p(y_true, y_pred, obs, offsets):
+    """Plain version of ops/stats.permutation_pvalues: per offset k one
+    float64 torch.roll of y_pred by k rows and its correlation with y_true;
+    p = (1 + #{null >= obs}) times the float32 reciprocal of n + 1."""
+    import torch
+
+    yt = y_true.double() - y_true.double().mean(dim=0)
+    yp = y_pred.double() - y_pred.double().mean(dim=0)
+    den = torch.sqrt((yt * yt).sum(dim=0) * (yp * yp).sum(dim=0))
+    o = obs.double()
+    exceed = torch.zeros_like(o)
+    for k in offsets.tolist():
+        exceed += ((yt * torch.roll(yp, k, dims=0)).sum(dim=0) / den) >= o
+    inv = torch.tensor(1.0 / (len(offsets) + 1.0), dtype=torch.float32)
+    return (1.0 + exceed.float()) * inv.to(o.device)
+
+
+def permutation_check(args, metrics, alphas):
+    """(c)'s permutation p-values. Its first NS_ROLL_BLOCK voxels against
+    roll_permutation_p on the same predictions (the first voxel chunk refit
+    as _fit_and_score refits it, from (c)'s alphas), observed r and offsets
+    (nested_cv._permutation_offsets, train/test mode): they must be equal.
+    The NS_NULL noise-only voxels must not pile up at the 1/1001 floor: at
+    most 2 there, at most 20% under 0.05, and a median p in [0.2, 0.8]."""
+    import torch
+
+    from litcoder_core_torch.models import nested_cv
+    from litcoder_core_torch.models.ridge import (predict, ridge_fit_from_svd,
+                                                  ridge_svd)
+    from litcoder_core_torch.ops.stats import pearson_r
+    from litcoder_core_torch.utils.device import matmul_tf32, to_numpy
+
+    X_tr, Y_tr, X_te, Y_te = args
+    with matmul_tf32(False):
+        svd = ridge_svd(X_tr, None, singcutoff=1e-10, method="auto")
+        nal = torch.as_tensor(alphas, dtype=torch.float32,
+                              device=X_tr.device) * svd.S[0]
+        pred = predict(X_te, ridge_fit_from_svd(svd, Y_tr[:, :NS_CHUNK],
+                                                nal[:NS_CHUNK]))
+    block = slice(0, NS_ROLL_BLOCK)
+    obs = torch.as_tensor(np.asarray(metrics["correlations"][block],
+                                     np.float32), device=X_tr.device)
+    refit_gap = float(torch.max(torch.abs(
+        pearson_r(Y_te[:, :NS_CHUNK], pred)[block] - obs)))
+    offsets = nested_cv._permutation_offsets(0, None, NS_PERMUTATIONS,
+                                             NS_TEST)
+    p_roll = to_numpy(roll_permutation_p(Y_te[:, block], pred[:, block], obs,
+                                         offsets)).astype(np.float64)
+    p = np.asarray(metrics["p_values"])
+    differ = int(np.sum(p_roll != p[block]))
+    p_null = p[:NS_NULL]
+    floor = float(np.float32(1.0 / (NS_PERMUTATIONS + 1)))
+    at_floor = int(np.sum(p_null <= floor))
+    under = float(np.mean(p_null < 0.05))
+    median = float(np.median(p_null))
+    print(f"  (c) roll null on voxels 0-{NS_ROLL_BLOCK - 1}: {differ} of "
+          f"{NS_ROLL_BLOCK} p-values differ (refit |dr| {refit_gap:.3e}); "
+          f"{NS_NULL} noise-only voxels: {at_floor} at the floor, "
+          f"{under:.1%} under 0.05, median p {median:.4f}; signal voxels at "
+          f"the floor {np.mean(p[NS_NULL:] <= floor):.4%}", flush=True)
+    if differ or at_floor > 2 or under > 0.2 or not 0.2 <= median <= 0.8:
+        raise AssertionError("(c): the permutation null is wrong")
+
+
+class GuardLog(logging.Handler):
+    """Keeps the fast_scan='auto' guard's decision lines of a fit."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        if "fast_scan='auto'" in record.getMessage():
+            self.messages.append(record.getMessage())
+
+
+def northstar_phase(smi_line):
+    """benchmarks/northstar.py's whole-brain train/test fit, three ways."""
+    import torch
+
+    X, Y = signal_problem(NS_T + NS_TEST, NS_V, 1, n_null=NS_NULL)
+    args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
+    print(f"  T={NS_T} train + {NS_TEST} test rows, D={NS_D}, V={NS_V} "
+          f"({NS_NULL} of them noise only): Y {Y.numel() * 4 / 1e9:.2f} GB "
+          f"on the card", flush=True)
+    grid = np.logspace(-1, 8, 10)
+    ma, aa = timed_fit("(a) voxel_chunk_size=4096", smi_line, *args,
+                       voxel_chunk_size=NS_CHUNK)
+    check_metrics(ma, NS_V, grid)
+    mb, ab = timed_fit("(b) voxel_chunk_size=None", smi_line, *args)
+    check_metrics(mb, NS_V, grid)
+    agreement("(a) vs (b)", aa, ab, ma, mb, 0.999, 1e-4)
+    guard = GuardLog()
+    fit_log = logging.getLogger("litcoder_core_torch.models.nested_cv")
+    level = fit_log.level
+    fit_log.addHandler(guard)
+    fit_log.setLevel(logging.INFO)
+    try:
+        mc, ac = timed_fit(f"(c) voxel_chunk_size=4096, fast_scan='auto', "
+                           f"{NS_PERMUTATIONS} permutations", smi_line,
+                           *args, voxel_chunk_size=NS_CHUNK,
+                           fast_scan="auto", significance="permutation",
+                           n_permutations=NS_PERMUTATIONS)
+    finally:
+        fit_log.removeHandler(guard)
+        fit_log.setLevel(level)
+    for message in guard.messages:
+        print(f"  (c) guard: {message}", flush=True)
+    decision = mc["solver_paths"]["fast_scan"]
+    if decision not in ("auto_accepted", "auto_rejected"):
+        raise AssertionError(f"(c) recorded fast_scan {decision!r}")
+    check_metrics(mc, NS_V, grid, _paths("chol", decision))
+    if mc.get("significance_method") != "permutation":
+        raise AssertionError("(c) lacks significance_method='permutation'")
+    dm = agreement(f"(c, {decision}) vs (a)", ac, aa, mc, ma,
+                   0.98 if decision == "auto_accepted" else 0.999, 1e-4)
+    p = np.asarray(mc["p_values"])
+    floor = float(np.float32(1.0 / (NS_PERMUTATIONS + 1)))
+    print(f"  (c) permutation p: min {p.min():.6g} (floor {floor:.6g}), "
+          f"n_significant {mc['n_significant']}", flush=True)
+    if p.min() < floor or dm > 1e-3:
+        raise AssertionError("(c): p under the floor or median r moved")
+    permutation_check(args, mc, ac)
+    profile_fit("(a)", smi_line, *args, voxel_chunk_size=NS_CHUNK)
+    del X, Y, args
+    torch.cuda.empty_cache()
+
+
+def eigh_search_phase(smi_line):
+    """The surface-width north-star problem through the Cholesky search and
+    method='eigh': with chunks of 20 rows its 1,344 chunks split 269/268
+    over the 5 folds, so 'eigh' takes the per-fold loop; with chunks of 21
+    (1,280 chunks, 256 per fold) the folds are equal and partition the
+    rows, so it takes the complement-gram eigh."""
+    import torch
+
+    X, Y = signal_problem(NS_T + NS_TEST, N_VERTICES, 2)
+    args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
+    grid = np.logspace(-1, 8, 10)
+    for chunk_length, search in ((20, "per_fold_loop_eigh"),
+                                 (21, "complement_eigh")):
+        mc, ac = timed_fit(f"chunks of {chunk_length}, method='auto'",
+                           smi_line, *args, chunk_length=chunk_length)
+        check_metrics(mc, N_VERTICES, grid)
+        me, ae = timed_fit(f"chunks of {chunk_length}, method='eigh'",
+                           smi_line, *args, chunk_length=chunk_length,
+                           method="eigh")
+        check_metrics(me, N_VERTICES, grid, _paths(search))
+        dm = agreement(f"chunks of {chunk_length}, eigh vs auto", ae, ac, me,
+                       mc, 0.999, 2e-3, where_same=False)
+        if dm > 1e-3:
+            raise AssertionError(f"median r moved by {dm}")
+    del X, Y, args
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -721,6 +1082,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         phase("4 small end-to-end parity, card vs CPU")
         small_parity_phase(workdir)
+        solver_cases_phase()
 
         phase("5 main path at full size")
         record["launches"] = main_path_phase(workdir, smi_line)
@@ -730,6 +1092,12 @@ def main() -> int:
 
     phase("7 fused full-CV route at full size")
     fused_full_cv_phase(smi_line)
+
+    phase("8 north-star whole-brain fit, V=95556")
+    northstar_phase(smi_line)
+
+    phase("9 eigh search at full width")
+    eigh_search_phase(smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

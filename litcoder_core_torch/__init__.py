@@ -5,10 +5,11 @@ NVIDIA card: the fused Lanczos+FIR step is a hand-written CUDA kernel
 (csrc/lanczos_fir.cu), the rest plain torch ops. Entry points run on the
 card by default and raise without one; pass device='cpu' for the CPU.
 
-This slice covers the main path: AbstractTrainer with wordrate and static
-embeddings, Lanczos downsampling with FIR delays (fused or two-stage),
-train/test structuring, and fit_nested_cv in train/test mode through the
-Cholesky alpha search and the spectral refit. ROADMAP.md lists the rest.
+Ported so far: AbstractTrainer with wordrate and static embeddings,
+Lanczos downsampling with FIR delays (fused or two-stage), both
+structuring modes, and fit_nested_cv with every argument of the JAX fit
+but mesh/n_devices (every alpha-search path, voxel chunking, fast_scan,
+permutation significance). ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

@@ -12,15 +12,30 @@ Both modes of the JAX fit:
   otherwise each outer fold is fitted on its gathered rows (per-fold
   route, with the normalizers).
 
-The alpha search has no eigendecompositions: the Cholesky search (one
-Cholesky per (fold, alpha), complement or gather form) for tall folds, its
-dual (kernel-ridge) twin for wide ones, the `normalpha` scale from a Lanczos
-lambda-max. The host computes float64 p-values, Fisher combination and
-BH-FDR.
+The alpha search takes the JAX package's first eligible path, recorded in
+metrics['solver_paths']['alpha_search']:
+- 'chol': one Cholesky per (fold, alpha), complement or gather form, the
+  `normalpha` scale from a Lanczos lambda-max (tall folds, normalpha,
+  min alpha >= 0.03, singcutoff <= 1e-10; or method='chol');
+- 'dual': its kernel-ridge twin for wide folds (or method='dual');
+- 'complement_eigh': per-fold eigh of the union Gram downdated by the val
+  rows (equal-shape, partition-union, tall folds);
+- 'spectral_<eigh|dual|svd>': per-fold spectral states (equal shapes);
+- 'per_fold_loop_<method>': one ridge_svd per fold (unequal shapes).
 
-Still to come (ROADMAP.md), raising NotImplementedError: the eigh search
-paths (complement-gram, batched spectral, per-fold loop), voxel chunking,
-fast_scan, meshes and permutation significance.
+`voxel_chunk_size` streams the responses through every path in column
+chunks: views of Y (`Y[:, lo:hi]`), never a padded or gathered copy of all
+of it; the JAX lax.map over chunks is a Python loop. `fast_scan` runs the
+search's voxel-side products (X^T Y and the per-alpha predictions) with
+TF32 (True), or guards that scan with an fp32 scan of a calibration voxel
+subset ('auto'); the factorizations, the refit and the final scoring stay
+fp32, and the fit restores the caller's TF32 setting when it returns.
+`significance='permutation'` replaces the parametric tail with
+circular-shift permutation p-values whose offsets each fold draws once.
+The host computes float64 p-values, Fisher combination and BH-FDR.
+
+Not ported (ROADMAP.md): `mesh`/`n_devices` voxel sharding, which raises
+NotImplementedError.
 """
 
 import logging
@@ -36,17 +51,26 @@ from litcoder_core_torch.models.ridge import (
     _score_predictions,
     lmax_dense,
     predict,
+    ridge_corr_from_svd,
     ridge_fit_from_svd,
     ridge_svd,
+    score_alpha_grid,
 )
 from litcoder_core_torch.ops.stats import (
     bh_fdrcorrection_np,
     fisher_combine_pvalues_f64,
     pearson_pvalues_f64,
     pearson_r,
+    permutation_offsets,
+    permutation_pvalues,
     zscore,
 )
-from litcoder_core_torch.utils.device import as_f32, resolve_device, to_numpy
+from litcoder_core_torch.utils.device import (
+    as_f32,
+    matmul_tf32,
+    resolve_device,
+    to_numpy,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -60,6 +84,23 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
+def _voxel_chunks(n_voxels: int, chunk: Optional[int]):
+    """(lo, hi) column ranges of `chunk` voxels (one range when None)."""
+    if chunk is None or chunk >= n_voxels:
+        return [(0, n_voxels)]
+    return [(lo, min(lo + chunk, n_voxels))
+            for lo in range(0, n_voxels, chunk)]
+
+
+def _full_and_tail(call, n_voxels: int, chunk: Optional[int]) -> torch.Tensor:
+    """call(lo, hi) over every voxel chunk, concatenated on the last axis.
+    (The JAX package dispatches the full chunks and the non-divisible tail
+    as two programs so XLA never copies Y; a loop over column views has no
+    such hazard, and the tail is just the last chunk.)"""
+    parts = [call(lo, hi) for lo, hi in _voxel_chunks(n_voxels, chunk)]
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
 def _folds_cover_all_rows(fold_splits, n_rows: int) -> bool:
     """True iff every fold's train + val rows are exactly range(n_rows)."""
     for tr, va in fold_splits:
@@ -67,6 +108,19 @@ def _folds_cover_all_rows(fold_splits, n_rows: int) -> bool:
         if both.size != n_rows:
             return False
         if not np.array_equal(np.sort(both), np.arange(n_rows)):
+            return False
+    return True
+
+
+def _folds_partition_union(fold_splits) -> bool:
+    """True iff each fold's train rows = union rows minus its val rows (the
+    chunked-fold structure the complement identity requires)."""
+    union = np.unique(np.concatenate(
+        [np.concatenate([tr, va]) for tr, va in fold_splits]
+    ))
+    union_set = set(union.tolist())
+    for tr, va in fold_splits:
+        if set(tr.tolist()) != union_set - set(va.tolist()):
             return False
     return True
 
@@ -83,6 +137,93 @@ def _chol_search_eligible(method: str, normalpha: bool, alphas, fold_splits,
     if not (a.size and np.all(a >= 0.03)):
         return False
     return all(len(tr) >= n_features for tr, _ in fold_splits)
+
+
+# --- complement-Gram eigh search (equal-shape partition-union folds) --------
+#
+# With U the union of every fold's rows, each fold's training Gram and
+# cross-product are G_U - Xva^T Xva and X_U^T Y - Xva^T Yva: no (F, T_tr, .)
+# gathers, one eigh per fold of the downdated Gram.
+
+
+def _fold_states_complement(X: torch.Tensor, union_idx: torch.Tensor,
+                            val_idx: torch.Tensor, singcutoff: float):
+    """(S, Vh, good, PVh, Xva), each stacked over the folds (val_idx is
+    (F, Tva)), from one batched eigh of the (F, D, D) downdated Grams."""
+    Xu = X[union_idx]
+    Xva = X[val_idx]                                    # (F, Tva, D)
+    evals, evecs = torch.linalg.eigh((Xu.T @ Xu)[None] - Xva.mT @ Xva)
+    S = torch.sqrt(torch.clamp(torch.flip(evals, dims=[-1]), min=0.0))
+    Vh = torch.flip(evecs, dims=[-1]).mT
+    return S, Vh, S > singcutoff, Xva @ Vh.mT, Xva
+
+
+def _score_chunk_complement_body(states, X_union: torch.Tensor,
+                                 Y_union_chunk: torch.Tensor,
+                                 val_pos: torch.Tensor, alphas: torch.Tensor,
+                                 normalpha: bool, use_corr: bool,
+                                 fast_scan: bool = False) -> torch.Tensor:
+    """(A, Vc) mean fold scores for one voxel chunk of the union rows;
+    val_pos (F, Tva) are each fold's val rows as positions in the union."""
+    S_all, Vh_all, good_all, PVh_all, Xva_all = states
+    XtY = X_union.T @ Y_union_chunk  # (D, Vc), shared by the folds
+    acc = 0
+    for S, Vh, good, PVh, Xva, vp in zip(S_all, Vh_all, good_all, PVh_all,
+                                         Xva_all, val_pos):
+        Yva = Y_union_chunk[vp]
+        inv_s = torch.where(good, 1.0 / torch.where(good, S, 1.0), 0.0)
+        UR = inv_s[:, None] * (Vh @ (XtY - Xva.T @ Yva))
+        nal = alphas * S[0] if normalpha else alphas
+        acc = acc + score_alpha_grid(S, good, PVh, UR, Yva, nal,
+                                     use_corr=use_corr, fast_scan=fast_scan)
+    return acc / S_all.shape[0]
+
+
+def _score_all_complement(states, X_union: torch.Tensor, Y: torch.Tensor,
+                          union_idx: Optional[torch.Tensor],
+                          val_pos: torch.Tensor, alphas: torch.Tensor,
+                          normalpha: bool, use_corr: bool,
+                          chunk: Optional[int],
+                          fast_scan: bool = False) -> torch.Tensor:
+    """(A, V) complement-eigh scores, voxel chunk by voxel chunk; each
+    chunk's union rows are gathered from its column view (union_idx None:
+    the union is every row in order, and the view is used as it is)."""
+    def one_chunk(lo, hi):
+        Yc = Y[:, lo:hi]
+        return _score_chunk_complement_body(
+            states, X_union, Yc if union_idx is None else Yc[union_idx],
+            val_pos, alphas, normalpha, use_corr, fast_scan)
+
+    return _full_and_tail(one_chunk, Y.shape[1], chunk)
+
+
+# --- per-fold spectral states (equal-shape folds) ---------------------------
+
+
+def _fold_spectral_states(X: torch.Tensor, train_idx: torch.Tensor,
+                          val_idx: torch.Tensor, singcutoff: float,
+                          method: str):
+    """One RidgeSVD per fold, computed once per search and shared by every
+    voxel chunk (the factorization depends only on X). The JAX package
+    vmaps the folds; here they are a loop."""
+    return [ridge_svd(X[tr], X[va], singcutoff=singcutoff, method=method)
+            for tr, va in zip(train_idx, val_idx)]
+
+
+def _score_chunk_with_states(states, Y_chunk: torch.Tensor,
+                             train_idx: torch.Tensor, val_idx: torch.Tensor,
+                             alphas: torch.Tensor, normalpha: bool,
+                             use_corr: bool) -> torch.Tensor:
+    """(A, Vc) mean fold scores of one voxel chunk from the fold states."""
+    acc = 0
+    for state, tr, va in zip(states, train_idx, val_idx):
+        nal = alphas * state.S[0] if normalpha else alphas
+        acc = acc + ridge_corr_from_svd(state, Y_chunk[tr], Y_chunk[va], nal,
+                                        use_corr=use_corr)
+    return acc / len(states)
+
+
+# --- Cholesky fold-streaming search (no eigendecompositions) ----------------
 
 
 def _shifted_cholesky(G: torch.Tensor, alphas: torch.Tensor,
@@ -119,29 +260,23 @@ def _chol_factors_from_gram(G: torch.Tensor, Xva: torch.Tensor,
 
 
 def _score_alphas_from_factors(Z_all: torch.Tensor, XtY: torch.Tensor,
-                               Yva: torch.Tensor,
-                               use_corr: bool) -> torch.Tensor:
+                               Yva: torch.Tensor, use_corr: bool,
+                               fast_scan: bool = False) -> torch.Tensor:
     """(A, V) scores: per alpha, pred = Z_a^T XtY against the val responses
-    (one (Tva, V) prediction alive at a time)."""
+    (one (Tva, V) prediction alive at a time; TF32 under fast_scan)."""
     zP = zscore(Yva, dim=0)
-    Pvar = torch.var(Yva, dim=0, correction=1)
-    return torch.stack([
-        _score_predictions(Z.T @ XtY, Yva, zP, Pvar, use_corr)
-        for Z in Z_all
-    ])
+    out = []
+    for Z in Z_all:
+        with matmul_tf32(fast_scan):
+            pred = Z.T @ XtY
+        out.append(_score_predictions(pred, Yva, zP, use_corr))
+    return torch.stack(out)
 
 
 def _fold_chol_factors(Xtr: torch.Tensor, Xva: torch.Tensor,
                        alphas: torch.Tensor, normalpha: bool):
     """Gather-form factors (arbitrary fold rows): G_tr = Xtr^T Xtr."""
     return _chol_factors_from_gram(Xtr.T @ Xtr, Xva, alphas, normalpha)
-
-
-def _score_chunk_chol(Z_all: torch.Tensor, Xtr: torch.Tensor,
-                      Ytr: torch.Tensor, Yva: torch.Tensor,
-                      use_corr: bool) -> torch.Tensor:
-    """Gather-form fold scores: XtY = Xtr^T Ytr."""
-    return _score_alphas_from_factors(Z_all, Xtr.T @ Ytr, Yva, use_corr)
 
 
 def _complement_fold_factors(Xva: torch.Tensor, G_all: torch.Tensor,
@@ -153,39 +288,89 @@ def _complement_fold_factors(Xva: torch.Tensor, G_all: torch.Tensor,
     return Z_all
 
 
-def _score_fold_chol_whole_complement(Xva: torch.Tensor, Yva: torch.Tensor,
-                                      Z_all: torch.Tensor,
-                                      XtY_all: torch.Tensor,
-                                      use_corr: bool) -> torch.Tensor:
-    """Complement-form fold scores: XtY = XtY_all - Xva^T Yva, with XtY_all
-    = X^T Y computed once per fit and shared by every fold."""
-    return _score_alphas_from_factors(Z_all, XtY_all - Xva.T @ Yva, Yva,
-                                      use_corr)
+def _score_fold_voxel_chunks(factors: torch.Tensor, Y: torch.Tensor,
+                             use_corr: bool, chunk: Optional[int],
+                             fast_scan: bool = False, form: str = "gather",
+                             X: Optional[torch.Tensor] = None,
+                             tr: Optional[torch.Tensor] = None,
+                             va: Optional[torch.Tensor] = None,
+                             lo: Optional[torch.Tensor] = None,
+                             XtY_base: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """One fold's (A, V) scores, voxel chunk by voxel chunk (one chunk when
+    `chunk` is None), from its precomputed per-alpha solve factors (primal
+    Z_all or dual M_all): the one scorer behind every Cholesky-family
+    search. The chunk's cross-product (a scan product: it feeds only the
+    alpha argmax; the refit forms its own in fp32), by `form`:
+      'gather'     - Xtr^T Yc[tr] (arbitrary fold rows);
+      'complement' - base - Xva^T Yc[va], base = X^T Yc or, when given,
+                     the chunk's columns of XtY_base = X^T Y shared by every
+                     fold (train rows = all rows minus the val rows: no
+                     train gather);
+      'gram'       - XtY_base[:, chunk] - Xva^T Yc[va] - Xlo^T Yc[lo]: the
+                     fused route's inner fold (XtY_base = the outer fold's
+                     downdated X^T Y, `lo` the outer-train rows no inner
+                     fold touches, downdated here so no third (D, V) buffer
+                     exists);
+      'dual'       - none: the dual factors multiply Yc[tr] itself."""
+    if form != "dual":
+        Xva = X[va]
+    if form == "gather":
+        Xtr = X[tr]
+    if form == "gram":
+        Xlo = X[lo]
+
+    def one_chunk(c0, c1):
+        Yc = Y[:, c0:c1]
+        if form == "dual":
+            return _score_alphas_from_factors(factors, Yc[tr], Yc[va],
+                                              use_corr, fast_scan)
+        Yva_c = Yc[va]
+        with matmul_tf32(fast_scan):
+            if form == "gather":
+                XtY = Xtr.T @ Yc[tr]
+            else:
+                base = X.T @ Yc if XtY_base is None else XtY_base[:, c0:c1]
+                XtY = base - Xva.T @ Yva_c
+                if form == "gram":
+                    XtY = XtY - Xlo.T @ Yc[lo]
+        return _score_alphas_from_factors(factors, XtY, Yva_c, use_corr,
+                                          fast_scan)
+
+    return _full_and_tail(one_chunk, Y.shape[1], chunk)
 
 
 def _find_best_alphas_chol(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                            alphas: torch.Tensor, normalpha: bool,
-                           use_corr: bool) -> torch.Tensor:
+                           use_corr: bool,
+                           voxel_chunk_size: Optional[int] = None,
+                           fast_scan: bool = False) -> torch.Tensor:
     """(A, V) mean inner-fold scores of the Cholesky search, one fold at a
     time (its (A, D, Tva) factors never coexist with another fold's)."""
     dev = X.device
+    n_voxels = Y.shape[1]
     complement = _folds_cover_all_rows(fold_splits, X.shape[0])
+    XtY_all = None
     if complement:
-        G_all = X.T @ X    # the JAX package's _full_gram
-        XtY_all = X.T @ Y  # and _xty_scan
-    corr_sum = torch.zeros((alphas.shape[0], Y.shape[1]), dtype=torch.float32,
+        G_all = X.T @ X  # the JAX package's _full_gram
+        # X^T Y is fold-independent; shared only when chunking is off (with
+        # chunking on the caller asked for no persistent (D, V) buffer).
+        if voxel_chunk_size is None or voxel_chunk_size >= n_voxels:
+            with matmul_tf32(fast_scan):
+                XtY_all = X.T @ Y  # _xty_scan
+    corr_sum = torch.zeros((alphas.shape[0], n_voxels), dtype=torch.float32,
                            device=dev)
     for train_idx, val_idx in fold_splits:
         va = torch.as_tensor(np.asarray(val_idx), device=dev)
-        Xva, Yva = X[va], Y[va]
+        tr = torch.as_tensor(np.asarray(train_idx), device=dev)
         if complement:
-            Z_all = _complement_fold_factors(Xva, G_all, alphas, normalpha)
-            corr_sum += _score_fold_chol_whole_complement(
-                Xva, Yva, Z_all, XtY_all, use_corr)
+            Z_all = _complement_fold_factors(X[va], G_all, alphas, normalpha)
         else:
-            tr = torch.as_tensor(np.asarray(train_idx), device=dev)
-            Z_all, _ = _fold_chol_factors(X[tr], Xva, alphas, normalpha)
-            corr_sum += _score_chunk_chol(Z_all, X[tr], Y[tr], Yva, use_corr)
+            Z_all, _ = _fold_chol_factors(X[tr], X[va], alphas, normalpha)
+        corr_sum += _score_fold_voxel_chunks(
+            Z_all, Y, use_corr, voxel_chunk_size, fast_scan,
+            form="complement" if complement else "gather", X=X, tr=tr, va=va,
+            XtY_base=XtY_all)
         del Z_all
     return corr_sum / len(fold_splits)
 
@@ -219,49 +404,51 @@ def _dual_fold_factors(K_full: torch.Tensor, tr: torch.Tensor,
     return _cholesky_solve_all(L, Ktrva)
 
 
-def _score_fold_dual_whole(Y: torch.Tensor, tr: torch.Tensor,
-                           va: torch.Tensor, M_all: torch.Tensor,
-                           use_corr: bool) -> torch.Tensor:
-    """(A, V) dual fold scores: pred_a = M_a^T Y_tr."""
-    return _score_alphas_from_factors(M_all, Y[tr], Y[va], use_corr)
-
-
 def _score_fold_dual_voxel_side(K_full: torch.Tensor, Y: torch.Tensor,
                                 tr: torch.Tensor, va: torch.Tensor,
                                 alphas: torch.Tensor, normalpha: bool,
-                                use_corr: bool) -> torch.Tensor:
+                                use_corr: bool,
+                                fast_scan: bool = False) -> torch.Tensor:
     """(A, V) dual fold scores for V < Tva: solve against Y_tr instead of
     K_tr,va, C_a = (K_tr + nal_a^2 I)^-1 Y_tr and pred_a = K_tr,va^T C_a, so
     the solves scale with V rather than the fold width."""
     Ktr, Ktrva = _kernel_blocks(K_full, tr, va)
     Ytr, Yva = Y[tr], Y[va]
     zP = zscore(Yva, dim=0)
-    Pvar = torch.var(Yva, dim=0, correction=1)
     L, _ = _shifted_cholesky(Ktr, alphas, normalpha)
-    return torch.stack([
-        _score_predictions(Ktrva.T @ C, Yva, zP, Pvar, use_corr)
-        for C in _cholesky_solve_all(L, Ytr)
-    ])
+    out = []
+    for C in _cholesky_solve_all(L, Ytr):
+        with matmul_tf32(fast_scan):
+            pred = Ktrva.T @ C
+        out.append(_score_predictions(pred, Yva, zP, use_corr))
+    return torch.stack(out)
 
 
 def _find_best_alphas_dual(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                            alphas: torch.Tensor, normalpha: bool,
-                           use_corr: bool) -> torch.Tensor:
+                           use_corr: bool,
+                           voxel_chunk_size: Optional[int] = None,
+                           fast_scan: bool = False) -> torch.Tensor:
     """(A, V) mean inner-fold scores of the dual search: one K = X X^T, per
     fold kernel slices and one Cholesky per alpha, no eigendecomposition."""
     dev = X.device
+    n_voxels = Y.shape[1]
+    whole = voxel_chunk_size is None or voxel_chunk_size >= n_voxels
     K_full = _full_kernel(X)
-    corr_sum = torch.zeros((alphas.shape[0], Y.shape[1]), dtype=torch.float32,
+    corr_sum = torch.zeros((alphas.shape[0], n_voxels), dtype=torch.float32,
                            device=dev)
     for train_idx, val_idx in fold_splits:
         tr = torch.as_tensor(np.asarray(train_idx), device=dev)
         va = torch.as_tensor(np.asarray(val_idx), device=dev)
-        if Y.shape[1] < len(val_idx):
+        if whole and n_voxels < len(val_idx):
             corr_sum += _score_fold_dual_voxel_side(K_full, Y, tr, va, alphas,
-                                                    normalpha, use_corr)
+                                                    normalpha, use_corr,
+                                                    fast_scan)
             continue
         M_all = _dual_fold_factors(K_full, tr, va, alphas, normalpha)
-        corr_sum += _score_fold_dual_whole(Y, tr, va, M_all, use_corr)
+        corr_sum += _score_fold_voxel_chunks(M_all, Y, use_corr,
+                                             voxel_chunk_size, fast_scan,
+                                             form="dual", tr=tr, va=va)
         del M_all
     return corr_sum / len(fold_splits)
 
@@ -283,43 +470,157 @@ def _dual_search_eligible(method: str, normalpha: bool, alphas, fold_splits,
 
 def _mean_fold_scores(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                       alphas: np.ndarray, normalpha: bool, use_corr: bool,
-                      singcutoff: float, method: str,
+                      singcutoff: float, voxel_chunk_size: Optional[int],
+                      method: str, fast_scan: bool,
                       paths: Dict[str, str]) -> torch.Tensor:
-    """(A, V) mean inner-fold scores: the Cholesky search when its gate
-    holds, else the dual one. The JAX package's eigh paths (complement-gram,
-    batched spectral, per-fold loop) are not ported: a fit that would take
-    one raises."""
-    alphas_t = torch.as_tensor(alphas, device=X.device)
+    """(A, V) mean inner-fold scores on the first eligible search path, in
+    the JAX package's order: Cholesky, dual, complement-gram eigh (equal
+    partition-union folds), per-fold spectral states (equal shapes), the
+    per-fold loop."""
+    dev = X.device
+    n_voxels = Y.shape[1]
+    alphas_t = torch.as_tensor(alphas, device=dev)
+    shapes = {(len(tr), len(va)) for tr, va in fold_splits}
+    ttr = next(iter(shapes))[0] if len(shapes) == 1 else 0
+    resolved = method
+    if resolved == "auto":
+        # The spectral fallback factors the small side: Gram eigh when tall,
+        # kernel ('dual') eigh when wide.
+        resolved = "eigh" if ttr >= X.shape[1] else "dual"
+
     if _chol_search_eligible(method, normalpha, alphas, fold_splits,
                              X.shape[1], singcutoff):
         logger.info(
             "alpha search path: cholesky (eigensolve-free fold streaming)")
         paths["alpha_search"] = "chol"
         return _find_best_alphas_chol(X, Y, fold_splits, alphas_t, normalpha,
-                                      use_corr)
+                                      use_corr, voxel_chunk_size, fast_scan)
     if _dual_search_eligible(method, normalpha, alphas, fold_splits,
                              X.shape[1], singcutoff):
         logger.info("alpha search path: dual cholesky (kernel-ridge; "
                     "eigensolve-free, wide folds)")
         paths["alpha_search"] = "dual"
         return _find_best_alphas_dual(X, Y, fold_splits, alphas_t, normalpha,
-                                      use_corr)
-    raise _not_ported(
-        f"the eigh alpha search that method={method!r} reaches (normalpha="
-        f"{normalpha}, min alpha {float(np.min(alphas)):g}, singcutoff "
-        f"{singcutoff:g})"
-    )
+                                      use_corr, voxel_chunk_size, fast_scan)
+    if (len(shapes) == 1 and resolved == "eigh"
+            and _folds_partition_union(fold_splits)):
+        logger.info(
+            "alpha search path: complement-gram eigh (per-fold eigensolves;"
+            " the faster cholesky path needs normalpha=True, min(alpha) >="
+            " 0.03, singcutoff <= 1e-10, tall folds)")
+        paths["alpha_search"] = "complement_eigh"
+        union = np.unique(np.concatenate(
+            [np.concatenate([tr, va]) for tr, va in fold_splits]))
+        val_pos = torch.as_tensor(np.stack(
+            [np.searchsorted(union, va) for _, va in fold_splits]),
+            device=dev)
+        va_idx = torch.as_tensor(np.stack([va for _, va in fold_splits]),
+                                 device=dev)
+        union_t = torch.as_tensor(union, device=dev)
+        states = _fold_states_complement(X, union_t, va_idx, singcutoff)
+        every_row = np.array_equal(union, np.arange(X.shape[0]))
+        return _score_all_complement(
+            states, X if every_row else X[union_t], Y,
+            None if every_row else union_t, val_pos, alphas_t, normalpha,
+            use_corr, voxel_chunk_size, fast_scan)
+    if len(shapes) == 1:
+        logger.info("alpha search path: batched per-fold spectral (%s)",
+                    resolved)
+        paths["alpha_search"] = f"spectral_{resolved}"
+        tr_idx = torch.as_tensor(np.stack([tr for tr, _ in fold_splits]),
+                                 device=dev)
+        va_idx = torch.as_tensor(np.stack([va for _, va in fold_splits]),
+                                 device=dev)
+        states = _fold_spectral_states(X, tr_idx, va_idx, singcutoff,
+                                       resolved)
+        return _full_and_tail(
+            lambda lo, hi: _score_chunk_with_states(
+                states, Y[:, lo:hi], tr_idx, va_idx, alphas_t, normalpha,
+                use_corr),
+            n_voxels, voxel_chunk_size)
+    logger.info("alpha search path: per-fold python loop (unequal fold "
+                "shapes)")
+    paths["alpha_search"] = f"per_fold_loop_{method}"
+    corr_sum = torch.zeros((len(alphas), n_voxels), dtype=torch.float32,
+                           device=dev)
+    for train_idx, val_idx in fold_splits:
+        tr = torch.as_tensor(np.asarray(train_idx), device=dev)
+        va = torch.as_tensor(np.asarray(val_idx), device=dev)
+        svd = ridge_svd(X[tr], X[va], singcutoff=singcutoff, method=method)
+        nal = alphas_t * svd.S[0] if normalpha else alphas_t
+        corr_sum += _full_and_tail(
+            lambda lo, hi: ridge_corr_from_svd(
+                svd, Y[:, lo:hi][tr], Y[:, lo:hi][va], nal,
+                use_corr=use_corr),
+            n_voxels, voxel_chunk_size)
+    return corr_sum / len(fold_splits)
+
+
+# --- fast_scan='auto': the TF32 scan guarded by an fp32 calibration scan ----
+
+FAST_SCAN_AGREE_THRESHOLD = 0.98
+FAST_SCAN_CALIB_VOXELS = 512
+
+
+def _calib_voxels(n_voxels: int) -> np.ndarray:
+    """Evenly spaced calibration voxel indices for the fast_scan guard."""
+    return np.unique(np.linspace(
+        0, n_voxels - 1, min(FAST_SCAN_CALIB_VOXELS, n_voxels), dtype=int))
+
+
+def _fast_scan_accept(scores_fast: torch.Tensor, calib_scores: torch.Tensor,
+                      calib: np.ndarray, label: str = "") -> bool:
+    """The fast_scan='auto' decision (one policy for the plain search and the
+    fused full-CV folds): the per-voxel argmax of the fast scan on the
+    calibration voxels against that of an fp32 scan of them; accept when at
+    least FAST_SCAN_AGREE_THRESHOLD agree (the picks a reduced-precision
+    pass can flip are near-ties between adjacent alphas)."""
+    v = scores_fast.shape[-1]
+    pick_fast = to_numpy(torch.argmax(scores_fast.reshape(-1, v), dim=0))
+    pick_cal = to_numpy(torch.argmax(calib_scores.reshape(-1, calib.size),
+                                     dim=0))
+    agree = float(np.mean(pick_fast[calib] == pick_cal))
+    if agree >= FAST_SCAN_AGREE_THRESHOLD:
+        logger.info(
+            "fast_scan='auto'%s: TF32 scan ACCEPTED (calibration argmax "
+            "agreement %.1f%% on %d voxels)", label, agree * 100, calib.size)
+        return True
+    logger.info(
+        "fast_scan='auto'%s: TF32 scan REJECTED (agreement %.1f%% < %.0f%%);"
+        " re-running in fp32", label, agree * 100,
+        FAST_SCAN_AGREE_THRESHOLD * 100)
+    return False
 
 
 def _find_best_alphas(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                       alphas: np.ndarray, single_alpha: bool,
                       normalpha: bool, use_corr: bool, singcutoff: float,
-                      method: str, paths: Dict[str, str]) -> np.ndarray:
+                      voxel_chunk_size: Optional[int], method: str,
+                      fast_scan, paths: Dict[str, str]) -> np.ndarray:
     """Inner-CV alpha search: mean fold score per (alpha, voxel), then the
-    argmax (fast_scan is off: float32 scans only in this slice)."""
-    paths["fast_scan"] = "off"
-    mean_corrs = _mean_fold_scores(X, Y, fold_splits, alphas, normalpha,
-                                   use_corr, singcutoff, method, paths)
+    argmax. fast_scan: False (fp32 scan), True (TF32 scan products), or
+    'auto' (the TF32 scan over every voxel, accepted only if its picks on
+    a calibration subset agree with an fp32 scan of that subset; otherwise
+    the whole search reruns in fp32)."""
+    search = (fold_splits, alphas, normalpha, use_corr, singcutoff)
+    if fast_scan != "auto":
+        paths["fast_scan"] = "bf16" if fast_scan else "off"
+        mean_corrs = _mean_fold_scores(X, Y, *search, voxel_chunk_size,
+                                       method, bool(fast_scan), paths)
+        return _select_best_alphas(mean_corrs, alphas, single_alpha)
+    mc_fast = _mean_fold_scores(X, Y, *search, voxel_chunk_size, method,
+                                True, paths)
+    calib = _calib_voxels(Y.shape[1])
+    mc_cal = _mean_fold_scores(
+        X, Y[:, torch.as_tensor(calib, device=Y.device)], *search, None,
+        method, False, paths)
+    if _fast_scan_accept(mc_fast, mc_cal, calib):
+        paths["fast_scan"] = "auto_accepted"
+        return _select_best_alphas(mc_fast, alphas, single_alpha)
+    paths["fast_scan"] = "auto_rejected"
+    del mc_fast
+    mean_corrs = _mean_fold_scores(X, Y, *search, voxel_chunk_size, method,
+                                   False, paths)
     return _select_best_alphas(mean_corrs, alphas, single_alpha)
 
 
@@ -337,24 +638,69 @@ def _select_best_alphas(mean_corrs: torch.Tensor, alphas: np.ndarray,
     return np.asarray(alphas, np.float32)[best_idx]
 
 
+# --- refit and held-out scoring ---------------------------------------------
+
+
+def _permutation_offsets(seed: int, fold_idx: Optional[int],
+                         n_permutations: int, n_samples: int) -> torch.Tensor:
+    """The circular-shift offsets of one fold's permutation test (fold_idx
+    None: train/test mode), shared by every voxel chunk of the fold. Each
+    fold has its own stream, as the JAX package's fold_in(PRNGKey(seed),
+    fold_idx): a CPU torch.Generator seeded from (seed, fold_idx) through
+    numpy's SeedSequence, so the card and the CPU draw the same offsets."""
+    entropy = [seed] if fold_idx is None else [seed, fold_idx]
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
+    return permutation_offsets(n_permutations, n_samples,
+                               torch.Generator().manual_seed(int(state)))
+
+
+def _score_held_out(Yte: torch.Tensor, pred: torch.Tensor,
+                    perm_offsets: Optional[torch.Tensor]):
+    """(correlations, permutation p-values or None)."""
+    if perm_offsets is None:
+        return pearson_r(Yte, pred), None
+    p, obs = permutation_pvalues(Yte, pred, perm_offsets)
+    return obs, p
+
+
 def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
                    X_test: torch.Tensor, Y_test: torch.Tensor,
                    valphas: np.ndarray, normalpha: bool, singcutoff: float,
-                   return_weights: bool = True
+                   voxel_chunk_size: Optional[int] = None,
+                   method: str = "auto", return_weights: bool = True,
+                   perm_offsets: Optional[torch.Tensor] = None
                    ) -> Tuple[Optional[np.ndarray], np.ndarray, np.ndarray]:
-    """Refit with per-voxel alphas on the spectral basis of X_train (the
-    small side, 'auto'), predict the held-out set, and return (weights (D, V)
-    or None, correlations (V,), float64 p-values (V,)) as numpy."""
-    svd = ridge_svd(X_train, None, singcutoff=singcutoff, method="auto")
+    """Refit with per-voxel alphas on one spectral state of X_train, predict
+    the held-out set and score it, voxel chunk by voxel chunk (weights go to
+    the host chunk by chunk). Returns (weights (D, V) or None, correlations
+    (V,), float64 p-values (V,)): parametric from the host tail, or with
+    perm_offsets the permutation test (one-sided on r).
+
+    'chol'/'dual' are search methods; the refit factors whichever side of
+    X_train is smaller ('auto'), other methods factor as asked."""
+    svd_method = "auto" if method in ("chol", "dual") else method
+    svd = ridge_svd(X_train, None, singcutoff=singcutoff, method=svd_method)
     nalphas = torch.as_tensor(valphas, dtype=torch.float32,
                               device=X_train.device)
     if normalpha:
         nalphas = nalphas * svd.S[0]
-    wt = ridge_fit_from_svd(svd, Y_train, nalphas)
-    correlations = to_numpy(pearson_r(Y_test, predict(X_test, wt)))
-    weights = to_numpy(wt) if return_weights else None
-    return (weights, correlations,
-            pearson_pvalues_f64(correlations, Y_test.shape[0]))
+    wt_parts, corr_parts, p_parts = [], [], []
+    for lo, hi in _voxel_chunks(Y_train.shape[1], voxel_chunk_size):
+        wt = ridge_fit_from_svd(svd, Y_train[:, lo:hi], nalphas[lo:hi])
+        corr, p = _score_held_out(Y_test[:, lo:hi], predict(X_test, wt),
+                                  perm_offsets)
+        corr_parts.append(corr)
+        p_parts.append(p)
+        if return_weights:
+            wt_parts.append(to_numpy(wt))
+        del wt
+    correlations = to_numpy(torch.cat(corr_parts))
+    if perm_offsets is None:
+        pvalues = pearson_pvalues_f64(correlations, Y_test.shape[0])
+    else:
+        pvalues = to_numpy(torch.cat(p_parts)).astype(np.float64)
+    weights = np.concatenate(wt_parts, axis=1) if return_weights else None
+    return weights, correlations, pvalues
 
 
 # --- fused full-CV mode (cross-OUTER-fold reuse) -----------------------------
@@ -368,61 +714,98 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
 
 
 def _downdate_outer(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
-                    XtY_full: torch.Tensor, te: torch.Tensor):
-    """(G_full - Xte^T Xte, XtY_full - Xte^T Yte)."""
+                    XtY_full: torch.Tensor, te: torch.Tensor,
+                    chunk: Optional[int] = None):
+    """(G_full - Xte^T Xte, XtY_full - Xte^T Yte), the (Tte, V) test-row
+    gather streamed in voxel chunks of `chunk` (None: one chunk): XtY_tr
+    starts as a copy of XtY_full and each chunk's columns are downdated in
+    place (the JAX package's _downdate_outer_chunked fori_loop carry; its
+    separate tail dispatch, _downdate_xty_tail, is the loop's last chunk
+    here)."""
     Xte = X[te]
-    return G_full - Xte.T @ Xte, XtY_full - Xte.T @ Y[te]
+    XtY_tr = XtY_full.clone()
+    for lo, hi in _voxel_chunks(Y.shape[1], chunk):
+        XtY_tr[:, lo:hi] -= Xte.T @ Y[:, lo:hi][te]
+    return G_full - Xte.T @ Xte, XtY_tr
+
+
+def _inner_fold_factors_from_gram(X: torch.Tensor, va_g: torch.Tensor,
+                                  lo_g: torch.Tensor, G_tr: torch.Tensor,
+                                  alphas: torch.Tensor,
+                                  normalpha: bool) -> torch.Tensor:
+    """One inner fold's per-alpha solve factors from its outer fold's
+    training Gram, downdated by the inner val rows and the inner leftover
+    `lo_g` (outer-train rows no inner fold touches)."""
+    Xva, Xlo = X[va_g], X[lo_g]
+    Z_all, _ = _chol_factors_from_gram(G_tr - Xva.T @ Xva - Xlo.T @ Xlo, Xva,
+                                       alphas, normalpha)
+    return Z_all
 
 
 def _score_inner_fold_from_gram(X: torch.Tensor, Y: torch.Tensor,
                                 va_g: torch.Tensor, lo_g: torch.Tensor,
                                 G_tr: torch.Tensor, XtY_tr: torch.Tensor,
                                 alphas: torch.Tensor, normalpha: bool,
-                                use_corr: bool) -> torch.Tensor:
+                                use_corr: bool, fast_scan: bool = False,
+                                chunk: Optional[int] = None) -> torch.Tensor:
     """(A, V) one inner fold's scores from its outer fold's training Gram and
-    XtY. Only the val block and the inner leftover `lo_g` (outer-train rows
-    no inner fold touches, e.g. the chunking remainder) are downdated, inside
-    this call, so no third (D, V) buffer outlives it."""
-    Xva, Yva, Xlo = X[va_g], Y[va_g], X[lo_g]
-    Z_all, _ = _chol_factors_from_gram(G_tr - Xva.T @ Xva - Xlo.T @ Xlo, Xva,
-                                       alphas, normalpha)
-    XtY_in = XtY_tr - Xva.T @ Yva - Xlo.T @ Y[lo_g]
-    return _score_alphas_from_factors(Z_all, XtY_in, Yva, use_corr)
+    XtY, in voxel chunks of `chunk`. Only the val block and the inner
+    leftover are downdated, chunk by chunk, so no third (D, V) buffer
+    exists."""
+    Z_all = _inner_fold_factors_from_gram(X, va_g, lo_g, G_tr, alphas,
+                                          normalpha)
+    return _score_fold_voxel_chunks(Z_all, Y, use_corr, chunk, fast_scan,
+                                    form="gram", X=X, va=va_g, lo=lo_g,
+                                    XtY_base=XtY_tr)
 
 
-def _refit_score_from_gram(G_tr: torch.Tensor, XtY_tr: torch.Tensor,
-                           Xte: torch.Tensor, Yte: torch.Tensor,
-                           valphas: torch.Tensor, singcutoff: float,
-                           normalpha: bool, return_weights: bool):
-    """(weights (D, V) or None, correlations (V,)): the per-voxel-alpha refit
-    of ridge_svd('eigh') + ridge_fit_from_svd + predict, from the downdated
-    training Gram and XtY instead of the training rows."""
+def _refit_state_from_gram(G_tr: torch.Tensor, singcutoff: float):
+    """(S, Vh, good, inv_s) of ridge_svd('eigh') from a training Gram."""
     evals, evecs = torch.linalg.eigh(G_tr)  # ascending
     S = torch.sqrt(torch.clamp(torch.flip(evals, dims=[0]), min=0.0))
-    Vh = torch.flip(evecs, dims=[1]).T
     good = S > singcutoff
-    nal = valphas * S[0] if normalpha else valphas
     inv_s = torch.where(good, 1.0 / torch.where(good, S, 1.0), 0.0)
-    UR = inv_s[:, None] * (Vh @ XtY_tr)  # (k, V)
+    return S, torch.flip(evecs, dims=[1]).T, good, inv_s
+
+
+def _weights_from_state(state, XtY: torch.Tensor,
+                        nal: torch.Tensor) -> torch.Tensor:
+    """(D, V) refit weights V S/(S^2 + nal^2) S^-1 V^T XtY, per-voxel nal."""
+    S, Vh, good, inv_s = state
+    UR = inv_s[:, None] * (Vh @ XtY)  # (k, V)
     shrink = torch.where(good[:, None],
                          S[:, None] / (S[:, None] ** 2 + nal[None, :] ** 2),
                          0.0)
-    wt = Vh.T @ (shrink * UR)  # (D, V)
-    corr = pearson_r(Yte, Xte @ wt)
-    return (wt if return_weights else None), corr
+    return Vh.T @ (shrink * UR)
 
 
-def _folds_partition_union(fold_splits) -> bool:
-    """True iff each fold's train rows = union rows minus its val rows (the
-    chunked-fold structure the complement identity requires)."""
-    union = np.unique(np.concatenate(
-        [np.concatenate([tr, va]) for tr, va in fold_splits]
-    ))
-    union_set = set(union.tolist())
-    for tr, va in fold_splits:
-        if set(tr.tolist()) != union_set - set(va.tolist()):
-            return False
-    return True
+def _refit_score_from_gram(G_tr: torch.Tensor, XtY_tr: torch.Tensor,
+                           Xte: torch.Tensor, Y: torch.Tensor,
+                           te: torch.Tensor, valphas: torch.Tensor,
+                           singcutoff: float, normalpha: bool,
+                           return_weights: bool,
+                           perm_offsets: Optional[torch.Tensor] = None,
+                           chunk: Optional[int] = None):
+    """(weights (D, V) on the host or None, correlations (V,), permutation
+    p-values or None): the per-voxel-alpha refit of ridge_svd('eigh') +
+    ridge_fit_from_svd + predict, from the downdated training Gram and XtY
+    instead of the training rows. One eigh, then per voxel chunk of `chunk`
+    (None: one chunk) its weights, predictions of the test rows `te` and
+    scores; weights go to the host chunk by chunk, as in _fit_and_score."""
+    state = _refit_state_from_gram(G_tr, singcutoff)
+    nal = valphas * state[0][0] if normalpha else valphas
+    wt_parts, corr_parts, p_parts = [], [], []
+    for lo, hi in _voxel_chunks(Y.shape[1], chunk):
+        wt = _weights_from_state(state, XtY_tr[:, lo:hi], nal[lo:hi])
+        corr, p = _score_held_out(Y[:, lo:hi][te], Xte @ wt, perm_offsets)
+        corr_parts.append(corr)
+        p_parts.append(p)
+        if return_weights:
+            wt_parts.append(to_numpy(wt))
+        del wt
+    weights = np.concatenate(wt_parts, axis=1) if return_weights else None
+    return (weights, torch.cat(corr_parts),
+            None if perm_offsets is None else torch.cat(p_parts))
 
 
 def _full_cv_fused_eligible(method: str, normalpha: bool, alphas,
@@ -482,14 +865,24 @@ def _fused_outer_fold(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
                       XtY_full: torch.Tensor, train_idx, test_idx,
                       inner_splits, alphas: np.ndarray, single_alpha: bool,
                       normalpha: bool, use_corr: bool, singcutoff: float,
-                      return_weights: bool):
-    """(best alphas (V,), weights (D, V) or None, correlations (V,)) of one
-    outer fold on the fused route. Its (D, V) G_tr/XtY_tr are locals, freed
-    on return, before the next fold's downdate."""
+                      return_weights: bool,
+                      voxel_chunk_size: Optional[int] = None,
+                      fast_scan=False,
+                      perm_offsets: Optional[torch.Tensor] = None,
+                      fold_idx: int = 0,
+                      paths: Optional[Dict[str, str]] = None):
+    """(best alphas (V,), weights (D, V) or None, correlations (V,),
+    permutation p-values or None) of one outer fold on the fused route. Its
+    (D, V) G_tr/XtY_tr are locals, freed on return, before the next fold's
+    downdate. With a voxel_chunk_size the downdate, the inner scoring and
+    the refit stream voxel chunks; fast_scan='auto'
+    calibrates this fold's TF32 scan on its own."""
     dev = X.device
     tr_np = np.asarray(train_idx)
     te = torch.as_tensor(np.asarray(test_idx), device=dev)
-    G_tr, XtY_tr = _downdate_outer(X, Y, G_full, XtY_full, te)
+    n_vox = Y.shape[1]
+    G_tr, XtY_tr = _downdate_outer(X, Y, G_full, XtY_full, te,
+                                   voxel_chunk_size)
     inner_union = np.unique(np.concatenate(
         [np.concatenate([t, v]) for t, v in inner_splits]
     ))
@@ -497,24 +890,46 @@ def _fused_outer_fold(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
                                assume_unique=True)
     lo_g = torch.as_tensor(tr_np[in_leftover], device=dev)
     alphas_t = torch.as_tensor(alphas, device=dev)
-    acc = 0
-    for _itr, iva in inner_splits:
-        va_g = torch.as_tensor(tr_np[np.asarray(iva)], device=dev)
-        acc = acc + _score_inner_fold_from_gram(X, Y, va_g, lo_g, G_tr,
-                                                XtY_tr, alphas_t, normalpha,
-                                                use_corr)
-    best_valphas = _select_best_alphas(acc / len(inner_splits), alphas,
-                                       single_alpha)
+    va_gs = [torch.as_tensor(tr_np[np.asarray(iva)], device=dev)
+             for _itr, iva in inner_splits]
+
+    def inner_scores(Yf, XtYf, fs):
+        acc = 0
+        for va_g in va_gs:
+            acc = acc + _score_inner_fold_from_gram(
+                X, Yf, va_g, lo_g, G_tr, XtYf, alphas_t, normalpha, use_corr,
+                fs, voxel_chunk_size)
+        return acc / len(va_gs)
+
+    mean_corrs = inner_scores(Y, XtY_tr, bool(fast_scan))
+    if fast_scan == "auto":
+        # The fold's calibration: its downdated XtY restricted to the
+        # calibration columns (every op is columnwise).
+        calib = _calib_voxels(n_vox)
+        cal = torch.as_tensor(calib, device=dev)
+        mc_cal = inner_scores(Y[:, cal], XtY_tr[:, cal], False)
+        if _fast_scan_accept(mean_corrs, mc_cal, calib,
+                             label=f" (fused full-CV fold {fold_idx + 1})"):
+            paths["fast_scan"] = "auto_accepted"
+        else:
+            paths["fast_scan"] = "auto_rejected"
+            mean_corrs = inner_scores(Y, XtY_tr, False)
+    best_valphas = _select_best_alphas(mean_corrs, alphas, single_alpha)
+    del mean_corrs
     # The refit uses the whole outer-train Gram/XtY: inner-leftover rows are
     # training rows of this fold.
-    wt, corr = _refit_score_from_gram(
-        G_tr, XtY_tr, X[te], Y[te],
-        torch.as_tensor(best_valphas, device=dev), singcutoff, normalpha,
-        return_weights)
-    return (best_valphas, to_numpy(wt) if return_weights else None,
-            to_numpy(corr))
+    valphas = torch.as_tensor(best_valphas, device=dev)
+    wt, corr, perm_p = _refit_score_from_gram(
+        G_tr, XtY_tr, X[te], Y, te, valphas, singcutoff, normalpha,
+        return_weights, perm_offsets, voxel_chunk_size)
+    return (best_valphas, wt, to_numpy(corr),
+            None if perm_p is None else to_numpy(perm_p).astype(np.float64))
 
 
+# The fit runs in full fp32 (the JAX package's Precision.HIGHEST) and gives
+# the caller back its TF32 setting on return, exceptions included; a fast
+# scan turns TF32 on around its own products only.
+@matmul_tf32(False)
 def fit_nested_cv(
     features,
     targets,
@@ -540,7 +955,7 @@ def fit_nested_cv(
     inner_splits: Optional[List] = None,
     outer_splits: Optional[List] = None,
     return_weights: bool = True,
-    fast_scan: bool = False,
+    fast_scan: Union[bool, str] = False,
     mesh=None,
     n_devices: Optional[int] = None,
     significance: str = "parametric",
@@ -554,6 +969,12 @@ def fit_nested_cv(
     for API parity and `device` decides. features/targets/X_test/y_test may
     be numpy arrays or tensors. In full-CV mode `inner_splits` may be one
     list of folds for every outer fold or a list of per-fold lists.
+    `voxel_chunk_size` bounds device memory by streaming voxel columns;
+    `fast_scan` (False, True or 'auto') runs the alpha search's voxel-side
+    products with TF32; `significance='permutation'` gives one-sided
+    circular-shift p-values from `n_permutations` shifts per fold, floored
+    at 1/(n_permutations + 1), and adds metrics['significance_method'].
+    `mesh`/`n_devices` are not ported and raise NotImplementedError.
 
     Returns:
         (metrics, weights (n_features, n_voxels) or None, best_alphas (V,)),
@@ -575,28 +996,19 @@ def fit_nested_cv(
         raise ValueError(
             f"fast_scan must be True, False or 'auto', got {fast_scan!r}"
         )
-    if fast_scan is not False:
-        raise _not_ported(f"fast_scan={fast_scan!r}")
-    if voxel_chunk_size is not None:
-        raise _not_ported("voxel_chunk_size")
     if mesh is not None or n_devices is not None:
         raise _not_ported("mesh/n_devices voxel sharding")
-    if significance == "permutation":
-        raise _not_ported("significance='permutation'")
-    del n_permutations
 
     dev = resolve_device(device)
-    # float32 products in full precision: the JAX package's HIGHEST.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+    n_perm = n_permutations if significance == "permutation" else 0
     paths: Dict[str, str] = {}
     if alphas is None:
         alphas = np.logspace(-1, 8, 10)
     alphas = np.asarray(alphas, np.float32)
     search = dict(alphas=alphas, single_alpha=single_alpha,
                   normalpha=normalpha, use_corr=use_corr,
-                  singcutoff=singcutoff, method=method, paths=paths)
+                  singcutoff=singcutoff, voxel_chunk_size=voxel_chunk_size,
+                  method=method, fast_scan=fast_scan, paths=paths)
     normalize = normalize_features or normalize_targets
 
     X = as_f32(features, dev)
@@ -618,7 +1030,10 @@ def fit_nested_cv(
         best_valphas = _find_best_alphas(X, Y, inner_splits, **search)
         wt, correlations, pvalues = _fit_and_score(
             X, Y, X_te, Y_te, best_valphas, normalpha, singcutoff,
-            return_weights=return_weights,
+            voxel_chunk_size, method, return_weights=return_weights,
+            perm_offsets=(_permutation_offsets(seed, None, n_perm,
+                                               Y_te.shape[0])
+                          if n_perm else None),
         )
         significant, corrected_pvals = bh_fdrcorrection_np(pvalues,
                                                            alpha=alpha_fdr)
@@ -627,6 +1042,8 @@ def fit_nested_cv(
             list(correlations), list(pvalues), corrected_pvals, significant,
             best_valphas, n_significant,
         )
+        if n_perm:
+            metrics["significance_method"] = "permutation"
         metrics["solver_paths"] = paths
         logger.info("Median correlation: %.3f", metrics["median_score"])
         return metrics, wt, best_valphas
@@ -646,7 +1063,8 @@ def fit_nested_cv(
         logger.info("full-CV path: fused outer-fold streaming (one union "
                     "Gram/XtY downdated per fold)")
         paths.update(mode="full_cv_fused", alpha_search="fused_chol",
-                     fast_scan="off")
+                     fast_scan=("auto" if fast_scan == "auto"
+                                else ("bf16" if fast_scan else "off")))
         G_full = X.T @ X
         XtY_full = X.T @ Y
         # Rows outside the fold-scheme union (the chunking remainder) are in
@@ -668,12 +1086,16 @@ def fit_nested_cv(
     n_outer = len(outer_splits)  # may differ from n_outer_folds if injected
     for fold_idx, (train_idx, test_idx) in enumerate(outer_splits):
         logger.info("Processing fold %d/%d", fold_idx + 1, n_outer)
+        offsets = (_permutation_offsets(seed, fold_idx, n_perm, len(test_idx))
+                   if n_perm else None)
         if fused:
-            best_valphas, wt, correlations = _fused_outer_fold(
+            best_valphas, wt, correlations, pvalues = _fused_outer_fold(
                 X, Y, G_full, XtY_full, train_idx, test_idx,
                 inner_per_fold[fold_idx], alphas, single_alpha, normalpha,
-                use_corr, singcutoff, return_weights)
-            pvalues = pearson_pvalues_f64(correlations, len(test_idx))
+                use_corr, singcutoff, return_weights, voxel_chunk_size,
+                fast_scan, offsets, fold_idx, paths)
+            if pvalues is None:
+                pvalues = pearson_pvalues_f64(correlations, len(test_idx))
         else:
             tr = torch.as_tensor(np.asarray(train_idx), device=dev)
             te = torch.as_tensor(np.asarray(test_idx), device=dev)
@@ -687,7 +1109,8 @@ def fit_nested_cv(
                 X_train, y_train, inner_per_fold[fold_idx], **search)
             wt, correlations, pvalues = _fit_and_score(
                 X_train, y_train, X_te, y_te, best_valphas, normalpha,
-                singcutoff, return_weights=return_weights)
+                singcutoff, voxel_chunk_size, method,
+                return_weights=return_weights, perm_offsets=offsets)
             del X_train, X_te, y_train, y_te
         fold_valphas.append(best_valphas)
         if return_weights:
@@ -716,6 +1139,8 @@ def fit_nested_cv(
         majority_significant_mask, mean_valphas, n_significant,
         n_majority_significant,
     )
+    if n_perm:
+        metrics["significance_method"] = "permutation"
     metrics["solver_paths"] = paths
     logger.info("Median correlation: %.3f", metrics["median_score"])
     return metrics, mean_weights, mean_valphas

@@ -1,22 +1,31 @@
 """Ridge regression core on tensors (twin of litcoder_core_tpu/models/ridge.py).
 
-- `ridge_svd` factors the small side of the design: 'eigh' eigendecomposes
-  the (D, D) Gram (U is never formed), 'dual' the (T, T) kernel; 'auto'
-  picks eigh when T >= D. Both eigensolvers return ascending values, so
-  the spectra are flipped to descending.
+- `ridge_svd` is the spectral stage: 'svd' is an economy SVD with the
+  singular values at or below `singcutoff` masked (zeroed in every
+  product) rather than truncated; 'eigh' eigendecomposes the (D, D) Gram
+  (U is never formed), 'dual' the (T, T) kernel; 'auto' picks eigh when
+  T >= D. Both eigensolvers return ascending values, so the spectra are
+  flipped to descending.
+- `score_alpha_grid` scores a whole alpha grid from one spectral state,
+  one (Tp, V) prediction alive at a time; `ridge_corr_from_svd`,
+  `ridge_fit_from_svd` and the one-call wrappers `ridge_fit`, `ridge_corr`,
+  `ridge_corr_pred` build on it (the reference's ridge_regression.py API).
 - `lmax_dense` gives the `normalpha` scale without an eigendecomposition:
   m-step Lanczos with full reorthogonalisation and the f32 breakdown test.
   The JAX fori_loop is a Python loop here; every step stays on the device.
 
-All products are float32; the fit turns TF32 off at its entry, which
-matches the JAX package's Precision.HIGHEST.
+All products are float32 with TF32 off (the JAX package's
+Precision.HIGHEST: the fit scopes the flag, utils.device.matmul_tf32),
+except the alpha-grid prediction products of a fast scan, which run with
+TF32 on.
 """
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from litcoder_core_torch.ops.stats import zscore
+from litcoder_core_torch.ops.stats import signed_square_corr, zscore
+from litcoder_core_torch.utils.device import matmul_tf32
 
 
 class RidgeSVD(NamedTuple):
@@ -28,6 +37,14 @@ class RidgeSVD(NamedTuple):
     good: torch.Tensor           # (k,) bool mask: S > singcutoff
     PVh: Optional[torch.Tensor]  # (Tp, k) validation stimuli in that basis
     X: Optional[torch.Tensor]    # (T, D) training stimuli (U-free products)
+
+
+def svd_masked(X: torch.Tensor, singcutoff: float = 1e-10):
+    """(U, S, Vh, good): economy SVD of (T, D) with good = S > singcutoff;
+    downstream products multiply by `good`, so masked components contribute
+    nothing (the reference truncates them, ridge_utils.py:44-47)."""
+    U, S, Vh = torch.linalg.svd(X.to(torch.float32), full_matrices=False)
+    return U, S, Vh, S > singcutoff
 
 
 def ridge_svd(Rstim: torch.Tensor, Pstim: Optional[torch.Tensor] = None,
@@ -53,18 +70,20 @@ def ridge_svd(Rstim: torch.Tensor, Pstim: Optional[torch.Tensor] = None,
         good = S > singcutoff
         U = None
         keepX = Rstim
+    elif method == "svd":
+        U, S, Vh, good = svd_masked(Rstim, singcutoff)
+        keepX = None
     else:
-        raise NotImplementedError(
-            f"ridge_svd method {method!r} is not ported to litcoder_core_torch "
-            "yet (see ROADMAP.md, queue A); use 'auto', 'eigh' or 'dual'"
-        )
+        raise ValueError(f"ridge_svd method must be 'auto', 'eigh', 'dual' "
+                         f"or 'svd'; got {method!r}")
 
     PVh = None if Pstim is None else Pstim.to(torch.float32) @ Vh.T
     return RidgeSVD(U, S, Vh, good, PVh, keepX)
 
 
 def _ur_product(svd: RidgeSVD, Rresp: torch.Tensor) -> torch.Tensor:
-    """U^T Y: direct on the dual path; S^-1 V^T (X^T Y) on the eigh path."""
+    """U^T Y: direct on the svd and dual paths; S^-1 V^T (X^T Y) on the
+    eigh path."""
     Rresp = Rresp.to(torch.float32)
     if svd.U is not None:
         return svd.U.T @ Rresp
@@ -74,6 +93,12 @@ def _ur_product(svd: RidgeSVD, Rresp: torch.Tensor) -> torch.Tensor:
     return inv_s[:, None] * VtXtY
 
 
+def _normalize_alphas(alphas, svd: RidgeSVD, normalpha: bool) -> torch.Tensor:
+    """Alphas as float32 on the state's device, times S[0] under normalpha."""
+    alphas = torch.as_tensor(alphas, dtype=torch.float32, device=svd.S.device)
+    return alphas * svd.S[0] if normalpha else alphas
+
+
 def _shrinkage_per_voxel(svd: RidgeSVD, nalphas: torch.Tensor) -> torch.Tensor:
     """(k, V) ridge diagonal S / (S^2 + a^2) for per-voxel alphas."""
     S = svd.S[:, None]
@@ -81,24 +106,63 @@ def _shrinkage_per_voxel(svd: RidgeSVD, nalphas: torch.Tensor) -> torch.Tensor:
                        S / (S**2 + nalphas[None, :] ** 2), 0.0)
 
 
+def ridge_corr_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,
+                        Presp: torch.Tensor, nalphas: torch.Tensor,
+                        use_corr: bool = True) -> torch.Tensor:
+    """(A, Vc) scores of a pre-normalised alpha grid for one voxel chunk,
+    from the fold's spectral state (PVh required)."""
+    return score_alpha_grid(svd.S, svd.good, svd.PVh, _ur_product(svd, Rresp),
+                            Presp, nalphas, use_corr=use_corr)
+
+
+def score_alpha_grid(S: torch.Tensor, good: torch.Tensor, PVh: torch.Tensor,
+                     UR: torch.Tensor, Presp: torch.Tensor,
+                     nalphas: torch.Tensor, use_corr: bool = True,
+                     fast_scan: bool = False) -> torch.Tensor:
+    """(A, Vc) alpha-grid scores from spectral products: per alpha,
+    pred_a = (PVh * D_a) @ UR scored against Presp (NaN -> 0), one
+    prediction alive at a time. fast_scan runs the prediction products with
+    TF32 on (the JAX package's default-precision MXU passes); the alpha
+    argmax tolerates it, and the refit stays fp32."""
+    Presp = Presp.to(torch.float32)
+    zPresp = zscore(Presp, dim=0)
+    nalphas = torch.as_tensor(nalphas, dtype=torch.float32, device=S.device)
+    out = []
+    for na in nalphas:
+        D = torch.where(good, S / (S**2 + na**2), 0.0)
+        with matmul_tf32(fast_scan):
+            pred = (PVh * D[None, :]) @ UR
+        out.append(_score_predictions(pred, Presp, zPresp, use_corr))
+    return torch.stack(out)
+
+
 def _score_predictions(pred: torch.Tensor, Presp: torch.Tensor,
-                       zPresp: torch.Tensor, Prespvar: torch.Tensor,
-                       use_corr: bool) -> torch.Tensor:
+                       zPresp: torch.Tensor, use_corr: bool) -> torch.Tensor:
     """Correlation (or signed R^2) of one alpha's predictions, NaN -> 0."""
     if use_corr:
         rcorr = torch.mean(zPresp * zscore(pred, dim=0), dim=0)
     else:
-        resvar = torch.var(Presp - pred, dim=0, correction=1)
-        rsq = 1.0 - resvar / Prespvar
-        rcorr = torch.sqrt(torch.abs(rsq)) * torch.sign(rsq)
+        rcorr = signed_square_corr(Presp, pred)
     return torch.nan_to_num(rcorr, nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def _lanczos_lmax(matvec, v0: torch.Tensor, m: int) -> torch.Tensor:
+def _lanczos_lmax(matvec, v0: torch.Tensor, m: int,
+                  bound: torch.Tensor) -> torch.Tensor:
     """Largest eigenvalue of a symmetric operator by m-step Lanczos with full
     reorthogonalisation. Deterministic (fixed start, fixed step count); m is
     clamped to the dimension, and after Krylov breakdown (beta ~ f32 noise)
-    the remaining steps write zeros instead of normalising the noise."""
+    the remaining steps write zeros instead of normalising the noise.
+
+    The f32 breakdown test can miss: on a rank-deficient matrix the spent
+    Krylov space's residual may sit just above it, and normalising that
+    noise feeds the three-term recurrence junk whose betas grow until the
+    tridiagonal overflows (NaN) or its Ritz value leaves the spectrum.
+    `bound` is an upper bound of the spectrum (Gershgorin). Wherever the
+    whole tridiagonal's Ritz value is finite and within it, that value is
+    the result; otherwise it is the largest Ritz value of the longest
+    finite leading block that stays within the bound. Leading blocks'
+    largest Ritz values never decrease with the block size (interlacing),
+    so that block is the last one before the junk took over."""
     n = v0.shape[0]
     m = min(m, n)
     dev = v0.device
@@ -123,9 +187,35 @@ def _lanczos_lmax(matvec, v0: torch.Tensor, m: int) -> torch.Tensor:
         diag[i] = a
         off[i] = b
         v_prev, v, b_prev = v, v_next, b
-    tri = (torch.diag(diag) + torch.diag(off[:m - 1], 1)
-           + torch.diag(off[:m - 1], -1))
-    return torch.linalg.eigvalsh(tri)[-1]
+
+    def ritz_max(k: int) -> torch.Tensor:
+        tri = (torch.diag(diag[:k]) + torch.diag(off[:k - 1], 1)
+               + torch.diag(off[:k - 1], -1))
+        return torch.linalg.eigvalsh(tri)[-1]
+
+    def in_range(theta: torch.Tensor) -> bool:
+        return bool(torch.isfinite(theta) & (theta <= bound))
+
+    lmax = ritz_max(m) if bool(torch.isfinite(diag).all()
+                               & torch.isfinite(off).all()) else None
+    if lmax is not None and in_range(lmax):
+        return lmax
+    finite = torch.isfinite(diag) & torch.isfinite(off)
+    k = int(torch.cumprod(finite.to(torch.int32), 0).sum())
+    # Row k may hold a finite diagonal whose beta overflowed: the block of
+    # the first k rows uses only off[:k - 1].
+    k = min(k + 1, m) if k < m and bool(torch.isfinite(diag[k])) else k
+    for size in range(k, 0, -1):
+        lmax = ritz_max(size)
+        if in_range(lmax):
+            return lmax
+    return torch.clamp(diag[0], max=bound)
+
+
+def _gershgorin_bound(G: torch.Tensor) -> torch.Tensor:
+    """Upper bound of a symmetric matrix's spectrum, with a relative slack
+    for f32 Ritz values of matrices that meet it (all-equal row sums)."""
+    return torch.abs(G).sum(dim=1).max() * (1.0 + 1e-4)
 
 
 def lmax_dense(G: torch.Tensor, m: int = 64) -> torch.Tensor:
@@ -133,7 +223,7 @@ def lmax_dense(G: torch.Tensor, m: int = 64) -> torch.Tensor:
     started from one power step on the all-ones vector."""
     G = G.to(torch.float32)
     v0 = G @ torch.ones(G.shape[0], dtype=torch.float32, device=G.device)
-    return _lanczos_lmax(lambda w: G @ w, v0, m)
+    return _lanczos_lmax(lambda w: G @ w, v0, m, _gershgorin_bound(G))
 
 
 def ridge_fit_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,
@@ -142,6 +232,59 @@ def ridge_fit_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,
     UR = _ur_product(svd, Rresp)
     D = _shrinkage_per_voxel(svd, nalphas.to(torch.float32))
     return svd.Vh.T @ (D * UR)
+
+
+# --- one-call forms of the reference's ridge_regression.py -----------------
+
+
+def ridge_fit(Rstim, Rresp, valphas, singcutoff: float = 1e-30,
+              normalpha: bool = False, method: str = "svd") -> torch.Tensor:
+    """(D, V) ridge weights for a scalar or per-voxel alphas (ridge_torch,
+    encoding/models/ridge_regression.py:9-63)."""
+    Rresp = torch.as_tensor(Rresp, dtype=torch.float32)
+    svd = ridge_svd(torch.as_tensor(Rstim, device=Rresp.device), None,
+                    singcutoff=singcutoff, method=method)
+    valphas = torch.atleast_1d(torch.as_tensor(
+        valphas, dtype=torch.float32, device=Rresp.device))
+    if valphas.shape[0] == 1:
+        valphas = valphas.expand(Rresp.shape[1])
+    return ridge_fit_from_svd(svd, Rresp,
+                              _normalize_alphas(valphas, svd, normalpha))
+
+
+def ridge_corr(Rstim, Pstim, Rresp, Presp, alphas, singcutoff: float = 1e-30,
+               use_corr: bool = True, normalpha: bool = False,
+               method: str = "svd") -> torch.Tensor:
+    """(A, V) alpha-grid scores (ridge_corr_torch,
+    encoding/models/ridge_regression.py:66-141)."""
+    svd = ridge_svd(torch.as_tensor(Rstim), torch.as_tensor(Pstim),
+                    singcutoff=singcutoff, method=method)
+    return ridge_corr_from_svd(svd, torch.as_tensor(Rresp),
+                               torch.as_tensor(Presp),
+                               _normalize_alphas(alphas, svd, normalpha),
+                               use_corr=use_corr)
+
+
+def ridge_corr_pred(Rstim, Pstim, Rresp, Presp, valphas,
+                    singcutoff: float = 1e-30, use_corr: bool = True,
+                    normalpha: bool = True, method: str = "svd"
+                    ) -> torch.Tensor:
+    """(V,) held-out scores with per-voxel alphas (ridge_corr_pred_torch,
+    encoding/models/ridge_regression.py:144-216)."""
+    svd = ridge_svd(torch.as_tensor(Rstim), torch.as_tensor(Pstim),
+                    singcutoff=singcutoff, method=method)
+    return _ridge_corr_pred_from_svd(
+        svd, torch.as_tensor(Rresp, dtype=torch.float32),
+        torch.as_tensor(Presp, dtype=torch.float32),
+        _normalize_alphas(valphas, svd, normalpha), use_corr)
+
+
+def _ridge_corr_pred_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,
+                              Presp: torch.Tensor, nalphas: torch.Tensor,
+                              use_corr: bool = True) -> torch.Tensor:
+    pred = svd.PVh @ (_shrinkage_per_voxel(svd, nalphas)
+                      * _ur_product(svd, Rresp))  # (Tp, V)
+    return _score_predictions(pred, Presp, zscore(Presp, dim=0), use_corr)
 
 
 def predict(Pstim: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,27 @@ for CUDA on a machine without a usable card raises: nothing falls back to
 the CPU behind the caller's back.
 """
 
+import contextlib
+
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def matmul_tf32(enabled: bool):
+    """Scope the CUDA float32 matmul precision: TF32 tensor-core products
+    when `enabled`, full fp32 (IEEE) otherwise; the caller's setting is
+    restored on exit, exceptions included. CPU products are untouched.
+
+    Uses torch's per-backend `fp32_precision` flag (torch >= 2.9); reading
+    the legacy `allow_tf32` after a caller set the new one raises."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.fp32_precision
+    flags.fp32_precision = "tf32" if enabled else "ieee"
+    try:
+        yield
+    finally:
+        flags.fp32_precision = saved
 
 
 def resolve_device(device) -> torch.device:

@@ -203,11 +203,12 @@ def test_fused_inner_fold_and_refit_match_jax():
     valphas = np.full(16, 10.0, np.float32)
     wj, cj, _ = jcv._refit_score_from_gram(G_j, XtY_j, X[te], Y[te],
                                            valphas, 1e-10, True, True)
-    wt, ct = tcv._refit_score_from_gram(G_t, XtY_t, tX[te], tY[te],
-                                        torch.as_tensor(valphas), 1e-10,
-                                        True, True)
+    wt, ct, _ = tcv._refit_score_from_gram(G_t, XtY_t, tX[te], tY,
+                                           torch.as_tensor(te),
+                                           torch.as_tensor(valphas), 1e-10,
+                                           True, True)
     wj = np.asarray(wj)
-    np.testing.assert_allclose(wt.numpy(), wj, atol=1e-4 * np.abs(wj).max())
+    np.testing.assert_allclose(wt, wj, atol=1e-4 * np.abs(wj).max())
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=2e-4)
 
 
@@ -227,7 +228,8 @@ def test_dual_fold_factors_and_scores_match_jax(normalpha):
     Mt = tcv._dual_fold_factors(Kt, ttr, tva, ta, normalpha).numpy()
     np.testing.assert_allclose(Mt, Mj, atol=1e-4 * np.abs(Mj).max())
     sj = np.asarray(jcv._score_fold_dual_whole(Y, tr, va, Mj, True))
-    st = tcv._score_fold_dual_whole(tY, ttr, tva, torch.as_tensor(Mt), True)
+    st = tcv._score_fold_voxel_chunks(torch.as_tensor(Mt), tY, True, None,
+                                      form="dual", tr=ttr, va=tva)
     np.testing.assert_allclose(st.numpy(), sj, atol=2e-4)
     vj = np.asarray(jcv._score_fold_dual_voxel_side(Kj, Y[:, :20], tr, va,
                                                     alphas, normalpha, True))

@@ -89,13 +89,16 @@ def test_fold_factors_and_scores_match_jax(form):
         sj = jcv._score_fold_chol_whole_complement(X, Y, va, Zj,
                                                    jcv._xty_scan(X, Y), True)
         Zt = tcv._complement_fold_factors(tX[tva], tX.T @ tX, ta, True)
-        st = tcv._score_fold_chol_whole_complement(tX[tva], tY[tva], Zt,
-                                                   tX.T @ tY, True)
+        st = tcv._score_fold_voxel_chunks(Zt, tY, True, None,
+                                          form="complement", X=tX, va=tva,
+                                          XtY_base=tX.T @ tY)
     else:
         Zj, _ = jcv._fold_chol_factors(X[tr], X[va], alphas, True)
         sj = jcv._score_chunk_chol(Zj, X[tr], Y[tr], Y[va], True)
         Zt, _ = tcv._fold_chol_factors(tX[tr], tX[tva], ta, True)
-        st = tcv._score_chunk_chol(Zt, tX[tr], tY[tr], tY[tva], True)
+        st = tcv._score_fold_voxel_chunks(Zt, tY, True, None, form="gather",
+                                          X=tX, tr=torch.as_tensor(tr),
+                                          va=tva)
     Zj = np.asarray(Zj)
     np.testing.assert_allclose(Zt.numpy(), Zj, atol=1e-4 * np.abs(Zj).max())
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=2e-4)
@@ -142,11 +145,23 @@ def test_ties_go_to_the_first_alpha():
     dict(X_test=None, y_test=None, method="eigh"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_paths_raise(kwargs):
+    """Only mesh sharding (n_devices) is still unported and raises; every
+    other argument here once raised and now runs the JAX package's route:
+    the same solver_paths and alphas, correlations within 2e-3."""
     X, Y, Xt, Yt = _problem(T=100, D=5, V=3, Tp=20)
-    kw = dict(X_test=Xt, y_test=Yt, chunk_length=10, device="cpu")
+    kw = dict(X_test=Xt, y_test=Yt, chunk_length=10)
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.fit_nested_cv(X, Y, **kw)
+    if "n_devices" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcv.fit_nested_cv(X, Y, device="cpu", **kw)
+        return
+    mt, _, at = tcv.fit_nested_cv(X, Y, device="cpu", **kw)
+    mj, _, aj = jcv.fit_nested_cv(X, Y, **kw)
+    assert mt["solver_paths"] == mj["solver_paths"]
+    np.testing.assert_array_equal(at, aj)
+    np.testing.assert_allclose(mt["correlations"], mj["correlations"],
+                               atol=2e-3)
+    assert mt.get("significance_method") == mj.get("significance_method")
 
 
 def test_invalid_arguments_raise_value_error():

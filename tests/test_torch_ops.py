@@ -125,3 +125,103 @@ def test_host_zs_matches_jax(mat):
     np.testing.assert_array_equal(zs(mat.copy()), jax_zs(mat.copy()))
     np.testing.assert_array_equal(zs(mat[:, 2].copy()),
                                   jax_zs(mat[:, 2].copy()))
+
+
+# --- the rest of ops/stats.py -----------------------------------------------
+
+
+def test_stats_module_matches_jax_name_for_name():
+    def public(module):
+        return {n for n, v in vars(module).items()
+                if callable(v) and not n.startswith("_")
+                and getattr(v, "__module__", "") == module.__name__}
+
+    assert public(tstats) >= public(jstats)
+
+
+def test_pearson_pvalues_match_jax_float32():
+    rng = np.random.default_rng(3)
+    rs = rng.uniform(-0.5, 0.5, 64).astype(np.float32)
+    rs[7] = np.nan
+    got = tstats.pearson_pvalues(_t(rs), 100)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jstats.pearson_pvalues(rs, 100)),
+                               rtol=2e-4, atol=1e-6)
+    assert got[7] == 1.0
+    # r = 0.35 at n = 2000 is below float32's range in both packages.
+    assert float(tstats.pearson_pvalues(_t([0.35]), 2000)[0]) == 0.0
+    np.testing.assert_array_equal(tstats.pearson_pvalues(_t([0.3]), 2),
+                                  [1.0])
+
+
+def test_pearson_r_pvalues_matches_jax():
+    rng = np.random.default_rng(4)
+    yt = rng.normal(size=(60, 5)).astype(np.float32)
+    yp = (yt + rng.normal(size=(60, 5)) * np.arange(1, 6)).astype(np.float32)
+    rt, pt = tstats.pearson_r_pvalues(_t(yt), _t(yp))
+    rj, pj = jstats.pearson_r_pvalues(yt, yp)
+    _close(rt, rj)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=2e-4,
+                               atol=1e-6)
+
+
+def test_fisher_combine_pvalues_matches_jax():
+    """The float32 device combination, with the p = 0 floor and the all-ones
+    guard (tests/test_stats.py:146)."""
+    p = np.array([[0.0, 0.5, 1.0, 0.02], [0.3, 0.5, 1.0, 0.4]], np.float32)
+    got = tstats.fisher_combine_pvalues(_t(p)).numpy()
+    want = np.asarray(jstats.fisher_combine_pvalues(p))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert np.isfinite(got).all() and got[0] < 1e-30 and got[2] == 1.0
+    rng = np.random.default_rng(4)
+    q = rng.uniform(1e-6, 1.0, size=(5, 40)).astype(np.float32)
+    np.testing.assert_allclose(tstats.fisher_combine_pvalues(_t(q)).numpy(),
+                               np.asarray(jstats.fisher_combine_pvalues(q)),
+                               rtol=1e-4)
+
+
+def test_bh_fdrcorrection_device_matches_jax_and_host():
+    rng = np.random.default_rng(5)
+    p = np.concatenate([rng.uniform(0, 1e-4, 30), rng.uniform(0, 1, 200)])
+    p32 = p.astype(np.float32)
+    rt, ct = tstats.bh_fdrcorrection(_t(p32), alpha=0.05)
+    rj, cj = jstats.bh_fdrcorrection(p32, alpha=0.05)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-6)
+    np.testing.assert_array_equal(rt.numpy(),
+                                  tstats.bh_fdrcorrection_np(p, 0.05)[0])
+    none, _ = tstats.bh_fdrcorrection(_t([0.5, 0.9]), alpha=0.05)
+    assert not none.any()
+
+
+def test_signed_square_corr_matches_jax():
+    rng = np.random.default_rng(6)
+    yt = rng.normal(size=(50, 4)).astype(np.float32)
+    yp = (yt * [1.0, 0.5, -1.0, 0.0] + rng.normal(size=(50, 4))).astype(
+        np.float32)
+    _close(tstats.signed_square_corr(_t(yt), _t(yp)),
+           jstats.signed_square_corr(yt, yp))
+
+
+def test_noise_ceiling_split_half():
+    """Two repeats have one split: equal to the JAX ceiling. Eight repeats:
+    high-SNR voxels near 1, noise voxels near 0, fewer repeats lower
+    (tests/test_stats.py:281), and one repeat raises."""
+    r = np.random.default_rng(19)
+    t, v, reps = 240, 20, 8
+    signal = r.normal(size=(t, v)).astype(np.float32)
+    noise = np.where(np.arange(v) < 10, 0.3, 50.0).astype(np.float32)
+    resp = (signal[None] + noise[None, None, :]
+            * r.normal(size=(reps, t, v))).astype(np.float32)
+    _close(tstats.noise_ceiling_split_half(_t(resp[:2])),
+           jstats.noise_ceiling_split_half(resp[:2]), atol=1e-5)
+    ceil = tstats.noise_ceiling_split_half(_t(resp)).numpy()
+    assert np.all(ceil[:10] > 0.9) and np.all(np.abs(ceil[10:]) < 0.4)
+    ceil2 = tstats.noise_ceiling_split_half(_t(resp[:2])).numpy()
+    assert np.mean(ceil2[:10]) <= np.mean(ceil[:10]) + 1e-3
+    np.testing.assert_array_equal(
+        ceil, tstats.noise_ceiling_split_half(
+            _t(resp), torch.Generator().manual_seed(0)).numpy())
+    with pytest.raises(ValueError, match=">= 2 repeats"):
+        tstats.noise_ceiling_split_half(_t(resp[:1]))
