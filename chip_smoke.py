@@ -30,7 +30,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
      and permutation significance (the offsets come from a CPU generator,
      so both devices use the same ones and their p-values must be equal).
      Same alphas, correlations within 2e-3, median r within 1e-3, the same
-     solver_paths.
+     solver_paths. Then the fused step parallel.nested_cv_step on a seeded
+     problem (T=410, D=12, V=40, 4 equal folds of 10-row chunks) with
+     method 'auto' (Woodbury scan, union refit), 'chol', 'eigh', 'svd' on
+     non-complementary folds, single_alpha=True and use_corr=False: the
+     scan and refit each run took (the step's log line), the same alphas
+     and correlations within 1e-5 on card and CPU. Then the ten Downsampler
+     methods on one small story, card against CPU within 1e-5 of the CPU's
+     largest magnitude.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
@@ -67,10 +74,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
      loop) and of 21 (equal partition folds: complement-gram eigh): the
      same alpha on at least 99.9% of the voxels, correlations within 2e-3,
      median r within 1e-3.
+ 10. the fused step at full size: (a) bench.py's problem (T=4096, TP=512,
+     D=1536, V=20484, 10 alphas, equal_size_folds(4096, 5, 20): Tva=800,
+     a 4,000-row union, k=96) drawn on the card, nested_cv_step with
+     method 'auto' (Woodbury), 'chol', 'eigh' and 'auto' with
+     fast_scan=True, each one warm run then the median of 3 synchronized
+     walls and the peak memory; the fp32 three pick the same alpha on at
+     least 99.9% of the voxels; the fast scan's agreement; bench.py's stage
+     split (scan, scan at A=1, refit, predict+score, alpha grid and
+     fold-fixed) and achieved TFLOP/s from bench.py's FLOP count. (b) the
+     phase 9 generator at T=26880 (+2048 test rows), D=3072, V=20484 with
+     equal_size_folds(26880, 5, 20) (Tva=5360, k=80): 'auto' against
+     'chol', the same alpha on at least 99.9% of the voxels.
+ 11. the other downsamplers at full size: (a) all ten methods on story 0
+     of the phase 5 assembly (about 1,600 words x 768 features, 320 TRs;
+     gabor with freqs 0.1, 0.2, 0.3 Hz and sigma 2 s), card against CPU
+     within 1e-4 of the CPU's largest magnitude, with ms per call; (b)
+     the phase 5 trainer with downsample_config={'method': 'average'} (the
+     two-stage path with per-word TR ids): stage split, median r above
+     AVERAGE_MEDIAN_R_FLOOR, finite metrics, the Cholesky search.
 Phases 5 and 6 set the kernel's launch count to 0 just before they run and
-read it just after; phases 7-9 call the fit directly and print each fit's
-wall, median r, solver_paths and peak device memory. The last two lines
-are a JSON record of the kernel and {"ok": true, "device": {...}}.
+read it just after; phases 7-10 call the fit or the step directly and
+print each fit's wall, median r, route and peak device memory. The last
+two lines are a JSON record of the kernel and {"ok": true, "device":
+{...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
 """
@@ -216,6 +243,50 @@ NS_CHUNK, NS_PERMUTATIONS = 4096, 1000
 # permutation p-values must spread over (0, 1]) and holds (c)'s p-values of
 # its first NS_ROLL_BLOCK voxels, those included, against a plain roll null.
 NS_NULL, NS_ROLL_BLOCK = 64, 256
+
+# Phase 4's step cases: (label, folds, nested_cv_step arguments, the route
+# the step must log). 'equal' folds are equal_size_folds(STEP_T, 4, 10):
+# 400 rows in the union, so the union refit corrects for k=10 rows;
+# 'noncomp' adds those 10 rows to every train block.
+STEP_T, STEP_FOLDS, STEP_CHUNK = 410, 4, 10
+UNION_ROUTE = "woodbury scan, union_woodbury refit"
+STEP_CASES = [
+    ("method='auto'", "equal", {}, UNION_ROUTE),
+    ("method='chol'", "equal", dict(method="chol"), "chol scan, full refit"),
+    ("method='eigh'", "equal", dict(method="eigh"), "eigh scan, full refit"),
+    ("method='svd', non-complementary folds", "noncomp", dict(method="svd"),
+     "per_fold scan, full refit"),
+    ("single_alpha=True", "equal", dict(single_alpha=True), UNION_ROUTE),
+    ("use_corr=False", "equal", dict(use_corr=False), UNION_ROUTE),
+]
+STEP_ATOL = 1e-5
+
+# Phase 10 (a): bench.py's problem (bench.py:42) and its fold scheme.
+BENCH_T, BENCH_TP, BENCH_D, BENCH_A, BENCH_F, BENCH_CHUNK = (
+    4096, 512, 1536, 10, 5, 20)
+# Y = X W + unit noise with W (D, V) / sqrt(D): the signal's variance is
+# about 1, so r's ceiling is about 0.707; ridge from 3,200 training rows
+# of 1,536 features recovers well under it, far above chance (about
+# +-0.09 per voxel for the 512 held-out rows).
+BENCH_MEDIAN_R_FLOOR = 0.3
+
+# Phases 4 and 11: the Downsampler methods and their arguments; the
+# split-index methods take per-word TR ids (average, sum, last) or np.split
+# boundaries (legacy_*).
+DOWNSAMPLE_KWARGS = {
+    "rect": {},
+    "lanczos": {"window": 3, "cutoff_mult": 1.0},
+    "sinc": {"window": 3, "cutoff_mult": 1.0},
+    "gabor": {"freqs": [0.1, 0.2, 0.3], "sigma": 2.0},
+    "average": {}, "sum": {}, "last": {},
+    "legacy_average": {}, "legacy_sum": {}, "legacy_last": {},
+}
+# Phase 11 (b): the planted signal is built from Lanczos-downsampled
+# features, which the per-TR word average only approximates (a box of one
+# TR with each word weighted 1 / count, against a 3-lobe kernel over
+# neighbouring TRs), so it recovers less of the signal than phase 5 does;
+# the floor stays far above chance.
+AVERAGE_MEDIAN_R_FLOOR = 0.35
 
 
 def phase(name):
@@ -517,10 +588,11 @@ def build_assembly(seed, n_stories, n_tr, emb_dim, n_vox, vocab_size,
 
 
 def make_trainer(assembly, kv_path, device, results_dir, full_cv=False,
-                 delays=(1, 2, 3, 4)):
+                 delays=(1, 2, 3, 4), downsample_config=None):
     """The port's trainer with one static-embedding extractor: LeBel
     train/test structuring, or with `full_cv` the Narratives concatenation
-    (the fit's full nested-CV mode)."""
+    (the fit's full nested-CV mode); Lanczos downsampling unless
+    `downsample_config` names another method."""
     from litcoder_core_torch import (
         AbstractTrainer,
         Downsampler,
@@ -542,8 +614,8 @@ def make_trainer(assembly, kv_path, device, results_dir, full_cv=False,
         dataset_type="narratives" if full_cv else "lebel",
         logger_backend="none",
         results_dir=results_dir,
-        downsample_config={"method": "lanczos", "window": 3,
-                           "cutoff_mult": 1.0},
+        downsample_config=downsample_config or {
+            "method": "lanczos", "window": 3, "cutoff_mult": 1.0},
         device=device,
     )
 
@@ -678,6 +750,131 @@ def solver_cases_phase():
             raise AssertionError(f"{label}: card and CPU fits disagree")
 
 
+STEP_LOGGER = "litcoder_core_torch.parallel.step"
+
+
+def check_step_result(label, result, n_vox, grid):
+    """Host copies (correlations, p-values, alphas, weights) of a
+    NestedCVResult: finite, the right shapes, alphas from the grid."""
+    from litcoder_core_torch.utils.device import to_numpy
+
+    corr, p, alphas, weights = (to_numpy(t) for t in result)
+    if corr.shape != (n_vox,) or alphas.shape != (n_vox,) \
+            or weights.shape[1] != n_vox:
+        raise AssertionError(f"{label}: shapes {corr.shape} {alphas.shape} "
+                             f"{weights.shape}")
+    if not (np.all(np.isfinite(corr)) and np.all(np.isfinite(weights))
+            and np.all((p >= 0) & (p <= 1))):
+        raise AssertionError(f"{label}: non-finite results")
+    if not np.all(np.isin(alphas, np.asarray(grid, np.float32))):
+        raise AssertionError(f"{label}: alphas outside the grid")
+    return corr, p, alphas, weights
+
+
+def step_cases_phase():
+    """nested_cv_step on the card and on the CPU through each scan and
+    refit: the route each took (from the step's log line), the same alphas,
+    correlations within STEP_ATOL."""
+    from litcoder_core_torch.parallel.step import (equal_size_folds,
+                                                   nested_cv_step)
+
+    X, Y, Xt, Yt = small_problem(13, T=STEP_T)
+    grid = np.logspace(-1, 8, 10).astype(np.float32)
+    tr, va = equal_size_folds(STEP_T, STEP_FOLDS, STEP_CHUNK, seed=0)
+    rem = np.setdiff1d(np.arange(STEP_T), va.ravel())
+    folds = {"equal": (tr, va),
+             "noncomp": (np.concatenate(
+                 [tr, np.broadcast_to(rem, (len(tr), rem.size))], axis=1),
+                 va)}
+    for label, kind, kw, route in STEP_CASES:
+        got = {}
+        for device in ("cuda", "cpu"):
+            with LogLines(STEP_LOGGER, "nested_cv_step:") as log:
+                result = nested_cv_step(X, Y, Xt, Yt, grid, *folds[kind],
+                                        device=device, **kw)
+            if log.messages != [f"nested_cv_step: {route}"]:
+                raise AssertionError(f"{label}, {device}: logged "
+                                     f"{log.messages}, expected {route}")
+            got[device] = check_step_result(label, result, Y.shape[1], grid)
+        (rg, pg, ag, wg), (rc, pc, ac, wc) = got["cuda"], got["cpu"]
+        dr = float(np.max(np.abs(rg - rc)))
+        dw = float(np.max(np.abs(wg - wc)) / np.max(np.abs(wc)))
+        print(f"  step {label}: {route} on both, same alphas "
+              f"{bool(np.array_equal(ag, ac))}, max |dr| {dr:.3e} (bar "
+              f"{STEP_ATOL}), max |dp| {float(np.max(np.abs(pg - pc))):.3e}, "
+              f"max |dw| / max |w| {dw:.3e}", flush=True)
+        if not np.array_equal(ag, ac) or dr > STEP_ATOL:
+            raise AssertionError(f"step {label}: card and CPU disagree")
+        if kw.get("single_alpha") and np.unique(ag).size != 1:
+            raise AssertionError("single_alpha selected several alphas")
+
+
+def downsample_inputs(data, data_times, tr_times, split):
+    """The keyword arguments of every Downsampler method for one story;
+    the legacy methods get the np.split boundaries of the per-word ids."""
+    split = np.asarray(split)
+    boundaries = np.flatnonzero(np.diff(split)) + 1
+    out = {}
+    for method, kw in DOWNSAMPLE_KWARGS.items():
+        kw = dict(kw)
+        if method in ("average", "sum", "last"):
+            kw["split_indices"] = split
+        elif method.startswith("legacy"):
+            kw["split_indices"] = boundaries
+        out[method] = kw
+    return out
+
+
+def downsample_cases(label, data, data_times, tr_times, split, rtol,
+                     timed=False):
+    """Every Downsampler method on the card against the CPU, within rtol of
+    the CPU's largest magnitude and with the same shape; with `timed`, the
+    card's ms per call (median of 30 calls, each between two CUDA events,
+    inputs already on the card)."""
+    import torch
+
+    from litcoder_core_torch import Downsampler
+
+    ds = Downsampler()
+    dev = torch.device("cuda")
+    on_card = [torch.as_tensor(a, device=dev)
+               for a in (data, data_times, tr_times)]
+    parts = []
+    for method, kw in downsample_inputs(data, data_times, tr_times,
+                                        split).items():
+        cpu = ds.downsample(data, data_times, tr_times, method=method,
+                            device="cpu", **kw)
+        card = ds.downsample(*on_card, method=method, device=dev, **kw)
+        if card.device.type != "cuda" or card.shape != cpu.shape:
+            raise AssertionError(f"{label} {method}: {card.device} "
+                                 f"{tuple(card.shape)} vs {tuple(cpu.shape)}")
+        err = float((card.cpu() - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        part = (f"{method} {tuple(cpu.shape)} err {err:.2e} "
+                f"({err / scale:.2e} of max |CPU|)")
+        if timed:
+            ms = cuda_time_ms(lambda: ds.downsample(
+                *on_card, method=method, device=dev, **kw))
+            part += f" {ms:.4f} ms"
+        parts.append(part)
+        if not err <= rtol * scale:
+            raise AssertionError(f"{label} {method}: card and CPU differ by "
+                                 f"{err} > {rtol} x {scale}")
+    print(f"  downsampling, {label}, card vs CPU (bar {rtol} x max |CPU|): "
+          + "; ".join(parts), flush=True)
+
+
+def small_downsample_phase():
+    """The ten methods on one small story: 230 words over 49 TRs of 2 s,
+    the last TRs without a word."""
+    rng = np.random.default_rng(4)
+    data = rng.normal(size=(230, 16)).astype(np.float32)
+    data_times = np.sort(rng.uniform(0, 90, 230)).astype(np.float32)
+    tr_times = (np.arange(49) * 2.0 + 1.0).astype(np.float32)
+    downsample_cases("small story", data, data_times, tr_times,
+                     (data_times // 2).astype(int), 1e-5)
+
+
 def report_path_run(metrics, wall, peak, smi_line, floor):
     print(f"  trainer_stage_seconds {json.dumps(metrics['trainer_stage_seconds'])}"
           f" (train() wall {wall:.3f} s)", flush=True)
@@ -720,7 +917,7 @@ def main_path_phase(workdir, smi_line):
     if launches < N_STORIES:
         raise AssertionError(f"the kernel ran {launches} times, fewer than "
                              f"the {N_STORIES} stories")
-    return launches
+    return launches, asm, kv_path
 
 
 def narratives_phase(workdir, smi_line):
@@ -961,16 +1158,30 @@ def permutation_check(args, metrics, alphas):
         raise AssertionError("(c): the permutation null is wrong")
 
 
-class GuardLog(logging.Handler):
-    """Keeps the fast_scan='auto' guard's decision lines of a fit."""
+class LogLines(logging.Handler):
+    """Inside a with block, keeps the INFO lines of one port logger that
+    contain `key`: the fast_scan='auto' guard's decision of a fit, the
+    route of a nested_cv_step."""
 
-    def __init__(self):
+    def __init__(self, logger_name, key):
         super().__init__(logging.INFO)
+        self.log = logging.getLogger(logger_name)
+        self.key = key
         self.messages = []
 
     def emit(self, record):
-        if "fast_scan='auto'" in record.getMessage():
+        if self.key in record.getMessage():
             self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.saved_level = self.log.level
+        self.log.addHandler(self)
+        self.log.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self)
+        self.log.setLevel(self.saved_level)
 
 
 def northstar_phase(smi_line):
@@ -989,20 +1200,13 @@ def northstar_phase(smi_line):
     mb, ab = timed_fit("(b) voxel_chunk_size=None", smi_line, *args)
     check_metrics(mb, NS_V, grid)
     agreement("(a) vs (b)", aa, ab, ma, mb, 0.999, 1e-4)
-    guard = GuardLog()
-    fit_log = logging.getLogger("litcoder_core_torch.models.nested_cv")
-    level = fit_log.level
-    fit_log.addHandler(guard)
-    fit_log.setLevel(logging.INFO)
-    try:
+    with LogLines("litcoder_core_torch.models.nested_cv",
+                  "fast_scan='auto'") as guard:
         mc, ac = timed_fit(f"(c) voxel_chunk_size=4096, fast_scan='auto', "
                            f"{NS_PERMUTATIONS} permutations", smi_line,
                            *args, voxel_chunk_size=NS_CHUNK,
                            fast_scan="auto", significance="permutation",
                            n_permutations=NS_PERMUTATIONS)
-    finally:
-        fit_log.removeHandler(guard)
-        fit_log.setLevel(level)
     for message in guard.messages:
         print(f"  (c) guard: {message}", flush=True)
     decision = mc["solver_paths"]["fast_scan"]
@@ -1053,6 +1257,243 @@ def eigh_search_phase(smi_line):
     torch.cuda.empty_cache()
 
 
+def bench_problem(seed):
+    """bench.py's problem (bench._problem: X normal, W (D, V) / sqrt(D),
+    Y = X W + unit noise, the held-out rows the same way) drawn on the card
+    from a seeded torch.Generator: the distributions are bench.py's, the
+    numbers are not its numpy draws."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((BENCH_T, BENCH_D), device=dev, generator=gen)
+    W = torch.randn((BENCH_D, N_VERTICES), device=dev,
+                    generator=gen) / BENCH_D ** 0.5
+    Y = X @ W
+    Y += torch.randn(Y.shape, device=dev, generator=gen)
+    Xt = torch.randn((BENCH_TP, BENCH_D), device=dev, generator=gen)
+    Yt = Xt @ W
+    Yt += torch.randn(Yt.shape, device=dev, generator=gen)
+    return X, Y, Xt, Yt
+
+
+def step_flops(t_all, t_test, d, v, a, t_union, t_val, n_folds):
+    """bench.flops_estimate with the problem's sizes as arguments: the
+    Woodbury scan's and the union refit's products, factorizations and
+    scoring. Matmul 2mnk, eigh 10 n^3, Cholesky n^3 / 3."""
+    f = 2.0 * t_union * d * d + 2.0 * t_union * d * v + 10.0 * d ** 3
+    per_fold = (2.0 * t_val * d * d + 2.0 * t_val * d * v
+                + 2.0 * d * d * v + 24 * 4.0 * t_val * d
+                + a * (2.0 * t_val * t_val * d + t_val ** 3 / 3.0 * 2.0
+                       + 4.0 * t_val * t_val * d + 2.0 * t_val * d * v
+                       + 6.0 * t_val * v))
+    f += n_folds * per_fold
+    k = t_all - t_union
+    f += 2.0 * k * d * d + 2.0 * d * d * v + 4.0 * k * d * v + 2.0 * d * d * v
+    f += 2.0 * t_test * d * v + 6.0 * t_test * v
+    return f
+
+
+def timed_step(label, smi_line, args, folds, grid, runs, **kw):
+    """nested_cv_step on the card: one warm run (its route logged), then
+    the median of `runs` synchronized walls and the peak device memory of
+    those runs, the data included. Returns (alphas, metrics dict, wall)."""
+    import torch
+
+    from litcoder_core_torch.parallel.step import nested_cv_step
+
+    def run():
+        out = nested_cv_step(*args, grid, *folds, device="cuda", **kw)
+        torch.cuda.synchronize()
+        return out
+
+    with LogLines(STEP_LOGGER, "nested_cv_step:") as log:
+        run()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = run()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    corr, _, alphas, _ = check_step_result(label, out, args[1].shape[1],
+                                           grid)
+    wall = float(np.median(walls))
+    metrics = {"correlations": corr, "median_score": float(np.median(corr))}
+    print(f"  {label}: {log.messages[0]}; walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (median {wall:.4f}), "
+          f"median r {metrics['median_score']:.6f}, max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB), card: {smi_line}",
+          flush=True)
+    return alphas, metrics, wall
+
+
+def stage_split(args, folds, grid, iters=3):
+    """bench.stage_breakdown on the card: the scan stage alone, the scan at
+    A=1, the union refit from the scan's union products (rebuilt untimed),
+    prediction and scoring; each one warm call, then the median of `iters`
+    synchronized calls. The alpha grid's share is (A - 1) marginal alphas
+    scaled to A, the rest of the scan is fold-fixed."""
+    import torch
+
+    from litcoder_core_torch.parallel import step
+    from litcoder_core_torch.utils.device import matmul_tf32
+
+    dev = torch.device("cuda")
+    X, Y, Xt, Yt = args
+    alphas = torch.as_tensor(grid, device=dev)
+    tr, va = (torch.as_tensor(f, dtype=torch.long, device=dev)
+              for f in folds)
+    kw = dict(normalpha=True, use_corr=True, single_alpha=False,
+              singcutoff=1e-10, method="auto", complement=True,
+              scan="woodbury", fast_scan=False)
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)), out
+
+    scan_s, best = timed(lambda: step._scan_best_alphas(X, Y, alphas, tr, va,
+                                                        **kw))
+    scan_a1_s, _ = timed(lambda: step._scan_best_alphas(X, Y, alphas[:1], tr,
+                                                        va, **kw))
+    with matmul_tf32(False):
+        union = torch.sort(va.reshape(-1)).values
+        Xu = X[union]
+        lam_u, Q = torch.linalg.eigh(Xu.T @ Xu)
+        XtY_u = Xu.T @ Y[union]
+    refit_s, weights = timed(lambda: step._refit_union_woodbury(
+        X, Y, lam_u, Q, XtY_u, union, best, alphas, True))
+    score_s, _ = timed(lambda: step._predict_and_score(Xt, Yt, weights))
+    a_n = len(grid)
+    grid_s = min(max(scan_s - scan_a1_s, 0.0) / max(a_n - 1, 1) * a_n, scan_s)
+    stages = {"stage_scan_s": scan_s, "stage_scan_a1_s": scan_a1_s,
+              "stage_refit_s": refit_s, "stage_predict_score_s": score_s,
+              "scan_alpha_grid_s": grid_s,
+              "scan_fold_fixed_s": scan_s - grid_s}
+    print(f"  stage split (s): {json.dumps(stages)}", flush=True)
+
+
+def bench_step_phase(smi_line):
+    """bench.py's fused step on the card: Woodbury, Cholesky and eigh scans
+    and the fast scan, their walls, agreement, stage split and TFLOP/s."""
+    import torch
+
+    from litcoder_core_torch.parallel.step import equal_size_folds
+
+    args = bench_problem(0)
+    folds = equal_size_folds(BENCH_T, BENCH_F, BENCH_CHUNK, seed=0)
+    grid = np.logspace(-1, 8, BENCH_A).astype(np.float32)
+    t_val = folds[1].shape[1]
+    t_union = folds[1].size
+    print(f"  T={BENCH_T} TP={BENCH_TP} D={BENCH_D} V={N_VERTICES} "
+          f"A={BENCH_A} F={BENCH_F}: Tva={t_val}, union {t_union} rows, "
+          f"k={BENCH_T - t_union}", flush=True)
+    runs = {}
+    for label, kw in (("auto", {}), ("chol", dict(method="chol")),
+                      ("eigh", dict(method="eigh")),
+                      ("auto, fast_scan=True", dict(fast_scan=True))):
+        runs[label] = timed_step(f"method {label}", smi_line, args, folds,
+                                 grid, 3, **kw)
+        if not runs[label][1]["median_score"] > BENCH_MEDIAN_R_FLOOR:
+            raise AssertionError(f"{label}: median r under "
+                                 f"{BENCH_MEDIAN_R_FLOOR}")
+    for other in ("chol", "eigh"):
+        agreement(f"{other} vs auto", runs[other][0], runs["auto"][0],
+                  runs[other][1], runs["auto"][1], 0.999, 1e-4)
+    fast = runs["auto, fast_scan=True"][0] == runs["auto"][0]
+    print(f"  fast scan vs auto: same alpha on {fast.mean():.4%} of the "
+          f"voxels (bench.py's alpha_agree)", flush=True)
+    flops = step_flops(BENCH_T, BENCH_TP, BENCH_D, N_VERTICES, BENCH_A,
+                       t_union, t_val, BENCH_F)
+    for label in ("auto", "auto, fast_scan=True"):
+        wall = runs[label][2]
+        print(f"  {label}: {flops / 1e12:.3f} TFLOP (bench.flops_estimate) "
+              f"in {wall:.4f} s = {flops / wall / 1e12:.2f} TFLOP/s, "
+              f"{flops / wall / PEAK_F32_FLOP_PER_S:.1%} of the 67 TFLOP/s "
+              f"fp32 peak", flush=True)
+    stage_split(args, folds, grid)
+    del args
+    torch.cuda.empty_cache()
+
+
+def step_full_width_phase(smi_line):
+    """The fused step at D=3072 on phase 9's generator: 'auto' (Woodbury
+    scan at Tva=5360, union refit with k=80) against 'chol'."""
+    import torch
+
+    from litcoder_core_torch.parallel.step import equal_size_folds
+
+    X, Y = signal_problem(NS_T + NS_TEST, N_VERTICES, 3)
+    args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
+    folds = equal_size_folds(NS_T, 5, FUSED_CHUNK, seed=0)
+    grid = np.logspace(-1, 8, 10).astype(np.float32)
+    t_val, t_union = folds[1].shape[1], folds[1].size
+    print(f"  T={NS_T} TP={NS_TEST} D={NS_D} V={N_VERTICES}: Tva={t_val}, "
+          f"union {t_union} rows, k={NS_T - t_union}", flush=True)
+    runs = {label: timed_step(f"method {label}", smi_line, args, folds, grid,
+                              1, **kw)
+            for label, kw in (("auto", {}), ("chol", dict(method="chol")))}
+    for label, (_, metrics, _) in runs.items():
+        if not metrics["median_score"] > FUSED_MEDIAN_R_FLOOR:
+            raise AssertionError(f"{label}: median r under "
+                                 f"{FUSED_MEDIAN_R_FLOOR}")
+    agreement("chol vs auto", runs["chol"][0], runs["auto"][0],
+              runs["chol"][1], runs["auto"][1], 0.999, 1e-4)
+    flops = step_flops(NS_T, NS_TEST, NS_D, N_VERTICES, 10, t_union, t_val, 5)
+    wall = runs["auto"][2]
+    print(f"  auto: {flops / 1e12:.3f} TFLOP (bench.flops_estimate) in "
+          f"{wall:.4f} s = {flops / wall / 1e12:.2f} TFLOP/s", flush=True)
+    del X, Y, args
+    torch.cuda.empty_cache()
+
+
+def full_downsample_phase(asm, kv_path):
+    """The ten methods on story 0 of the phase 5 assembly, its 768-wide
+    word embeddings as the data."""
+    from litcoder_core_torch import FeatureExtractorFactory
+
+    emb = FeatureExtractorFactory.create_extractor(
+        "embeddings", "random-static", {"vector_path": kv_path,
+                                        "lowercase": False})
+    data = FeatureExtractorFactory.extract_features_with_caching(
+        emb, asm, asm.stories[0], 0)
+    downsample_cases(f"LeBel story 0 ({data.shape[0]} words x "
+                     f"{data.shape[1]})", data, asm.get_data_times()[0],
+                     asm.get_tr_times()[0], asm.get_split_indices()[0], 1e-4,
+                     timed=True)
+
+
+def average_trainer_phase(asm, kv_path, workdir, smi_line):
+    """The phase 5 trainer with the per-TR word average: the two-stage
+    path (no kernel launch) into the same Cholesky search."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    trainer = make_trainer(asm, kv_path, "cuda",
+                           os.path.join(workdir, "average_results"),
+                           downsample_config={"method": "average"})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train(chunk_length=20, n_inner_folds=5)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10))
+    print(f"  lanczos_fir launches {lf.launches} (the two-stage path)",
+          flush=True)
+    report_path_run(metrics, wall, peak, smi_line, AVERAGE_MEDIAN_R_FLOOR)
+
+
 def main() -> int:
     import torch
 
@@ -1083,21 +1524,31 @@ def main() -> int:
         phase("4 small end-to-end parity, card vs CPU")
         small_parity_phase(workdir)
         solver_cases_phase()
+        step_cases_phase()
+        small_downsample_phase()
 
         phase("5 main path at full size")
-        record["launches"] = main_path_phase(workdir, smi_line)
+        record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
 
         phase("6 Narratives path at full width, full nested CV")
         record["launches_narratives"] = narratives_phase(workdir, smi_line)
 
-    phase("7 fused full-CV route at full size")
-    fused_full_cv_phase(smi_line)
+        phase("7 fused full-CV route at full size")
+        fused_full_cv_phase(smi_line)
 
-    phase("8 north-star whole-brain fit, V=95556")
-    northstar_phase(smi_line)
+        phase("8 north-star whole-brain fit, V=95556")
+        northstar_phase(smi_line)
 
-    phase("9 eigh search at full width")
-    eigh_search_phase(smi_line)
+        phase("9 eigh search at full width")
+        eigh_search_phase(smi_line)
+
+        phase("10 fused nested-CV step at full size")
+        bench_step_phase(smi_line)
+        step_full_width_phase(smi_line)
+
+        phase("11 the other downsamplers at full size")
+        full_downsample_phase(asm, kv_path)
+        average_trainer_phase(asm, kv_path, workdir, smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

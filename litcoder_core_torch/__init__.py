@@ -5,16 +5,22 @@ NVIDIA card: the fused Lanczos+FIR step is a hand-written CUDA kernel
 (csrc/lanczos_fir.cu), the rest plain torch ops. Entry points run on the
 card by default and raise without one; pass device='cpu' for the CPU.
 
-Ported so far: AbstractTrainer with wordrate and static embeddings,
-Lanczos downsampling with FIR delays (fused or two-stage), both
-structuring modes, and fit_nested_cv with every argument of the JAX fit
-but mesh/n_devices (every alpha-search path, voxel chunking, fast_scan,
-permutation significance). ROADMAP.md lists the rest.
+Ported so far: AbstractTrainer with wordrate and static embeddings, all
+ten Downsampler methods with FIR delays (Lanczos fused or two-stage, the
+others two-stage), both structuring modes, fit_nested_cv with every
+argument of the JAX fit but mesh/n_devices (every alpha-search path, voxel
+chunking, fast_scan, permutation significance), the fused step
+parallel.nested_cv_step, and load_assembly/save_assembly. ROADMAP.md lists
+the rest.
 """
 
 __version__ = "0.1.0"
 
 from litcoder_core_torch.assembly.assemblies import SimpleNeuroidAssembly
+from litcoder_core_torch.assembly.assembly_loader import (
+    load_assembly,
+    save_assembly,
+)
 from litcoder_core_torch.assembly.story_data import StoryData
 from litcoder_core_torch.downsample.downsampling import Downsampler
 from litcoder_core_torch.features.factory import FeatureExtractorFactory
@@ -31,5 +37,7 @@ __all__ = [
     "SimpleNeuroidAssembly",
     "StoryData",
     "fit_nested_cv",
+    "load_assembly",
+    "save_assembly",
     "__version__",
 ]

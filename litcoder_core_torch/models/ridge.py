@@ -10,9 +10,14 @@
   one (Tp, V) prediction alive at a time; `ridge_corr_from_svd`,
   `ridge_fit_from_svd` and the one-call wrappers `ridge_fit`, `ridge_corr`,
   `ridge_corr_pred` build on it (the reference's ridge_regression.py API).
+- `score_alpha_grid_woodbury` scores the grid of one fold of the fused
+  step (parallel/step.py) from the eigenbasis of the fold-union Gram: a
+  (Tva, Tva) Cholesky per alpha instead of a per-fold eigensolve.
 - `lmax_dense` gives the `normalpha` scale without an eigendecomposition:
   m-step Lanczos with full reorthogonalisation and the f32 breakdown test.
-  The JAX fori_loop is a Python loop here; every step stays on the device.
+  `lmax_downdate`/`lmax_update` give it for diag(lam) -/+ P^T P, the fused
+  step's fold and full training Grams in the union eigenbasis. The JAX
+  fori_loop is a Python loop here; every step stays on the device.
 
 All products are float32 with TF32 off (the JAX package's
 Precision.HIGHEST: the fit scopes the flag, utils.device.matmul_tf32),
@@ -146,6 +151,52 @@ def _score_predictions(pred: torch.Tensor, Presp: torch.Tensor,
     return torch.nan_to_num(rcorr, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def score_alpha_grid_woodbury(lam_u: torch.Tensor, P: torch.Tensor,
+                              UR0: torch.Tensor, Presp: torch.Tensor,
+                              nalphas: torch.Tensor, use_corr: bool = True,
+                              fast_scan: bool = False,
+                              alpha_batch: Optional[int] = None
+                              ) -> torch.Tensor:
+    """(A, Vc) alpha-grid scores of one fold without a per-fold eigensolve.
+
+    With the union Gram G_u = Q diag(lam_u) Q^T, P = Xva Q (Tva, D) and
+    UR0 = Q^T XtY_tr (D, Vc), the Woodbury identity for the fold's training
+    Gram G_u - Xva^T Xva gives
+        pred_a = (I - K_a)^-1 P diag(d_a) UR0,  d_a = 1 / (lam_u + a^2),
+        K_a = P diag(d_a) P^T,
+    so each alpha costs one (Tva, Tva) Cholesky and two triangular solves.
+    I - K_a is positive definite for every a > 0; the caller gates on the
+    grid (parallel/step._resolve_scan_method). `alpha_batch` alphas are
+    factored, solved and predicted together as one (Ab Tva, D) @ (D, Vc)
+    product (None: one at a time); the scores do not depend on it. Only
+    that product joins `fast_scan` (TF32); K_a and the solves stay fp32.
+    A factor that is not positive definite (torch raises where JAX returns
+    NaN) is made NaN, so its alpha scores 0 as in the JAX package."""
+    Presp = Presp.to(torch.float32)
+    zPresp = zscore(Presp, dim=0)
+    lam = torch.clamp(lam_u.to(torch.float32), min=0.0)
+    t_va, d_dim = P.shape
+    eye = torch.eye(t_va, dtype=torch.float32, device=P.device)
+    nalphas = torch.as_tensor(nalphas, dtype=torch.float32, device=P.device)
+    a_n = nalphas.shape[0]
+    ab = 1 if alpha_batch is None else max(1, min(int(alpha_batch), a_n))
+    out = []
+    for lo in range(0, a_n, ab):
+        nal_b = nalphas[lo:lo + ab]
+        d = 1.0 / (lam[None, :] + (nal_b * nal_b)[:, None])  # (Ab, D)
+        Pt = P[None, :, :] * d[:, None, :]                   # (Ab, Tva, D)
+        L, info = torch.linalg.cholesky_ex(eye[None] - Pt @ P.T)
+        L = torch.where((info > 0)[:, None, None], float("nan"), L)
+        M = torch.linalg.solve_triangular(
+            L.mT, torch.linalg.solve_triangular(L, Pt, upper=False),
+            upper=True)                                      # (Ab, Tva, D)
+        with matmul_tf32(fast_scan):
+            pred = M.reshape(-1, d_dim) @ UR0                # (Ab Tva, Vc)
+        for p in pred.reshape(-1, t_va, pred.shape[-1]):
+            out.append(_score_predictions(p, Presp, zPresp, use_corr))
+    return torch.stack(out)
+
+
 def _lanczos_lmax(matvec, v0: torch.Tensor, m: int,
                   bound: torch.Tensor) -> torch.Tensor:
     """Largest eigenvalue of a symmetric operator by m-step Lanczos with full
@@ -224,6 +275,38 @@ def lmax_dense(G: torch.Tensor, m: int = 64) -> torch.Tensor:
     G = G.to(torch.float32)
     v0 = G @ torch.ones(G.shape[0], dtype=torch.float32, device=G.device)
     return _lanczos_lmax(lambda w: G @ w, v0, m, _gershgorin_bound(G))
+
+
+def _top_basis_vector(lam: torch.Tensor) -> torch.Tensor:
+    """The basis vector of argmax(lam): the union Gram's top eigendirection
+    in its own eigenbasis, the warm start of lmax_downdate/lmax_update (a
+    fold's downdate or the remainder's update barely rotates it)."""
+    v0 = torch.zeros_like(lam)
+    v0[torch.argmax(lam)] = 1.0
+    return v0
+
+
+def lmax_downdate(lam_u: torch.Tensor, P: torch.Tensor,
+                  m: int = 24) -> torch.Tensor:
+    """Largest eigenvalue of diag(lam_u) - P^T P (a fold's training Gram in
+    the union eigenbasis) by Lanczos: the fused step's per-fold `normalpha`
+    scale. diag(lam_u) - P^T P <= diag(lam_u), so max(lam_u) bounds it."""
+    lam = lam_u.to(torch.float32)
+    return _lanczos_lmax(lambda w: lam * w - P.T @ (P @ w),
+                         _top_basis_vector(lam), m,
+                         torch.max(lam) * (1.0 + 1e-4))
+
+
+def lmax_update(lam_u: torch.Tensor, P: torch.Tensor,
+                m: int = 24) -> torch.Tensor:
+    """Largest eigenvalue of diag(lam_u) + P^T P (the full training Gram when
+    P holds the rows outside the fold union in the union eigenbasis) by
+    Lanczos: the union refit's `normalpha` scale, bounded by
+    max(lam_u) + ||P||_F^2."""
+    lam = lam_u.to(torch.float32)
+    return _lanczos_lmax(lambda w: lam * w + P.T @ (P @ w),
+                         _top_basis_vector(lam), m,
+                         (torch.max(lam) + torch.sum(P * P)) * (1.0 + 1e-4))
 
 
 def ridge_fit_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,

@@ -10,7 +10,8 @@ fused Lanczos+FIR kernel through structuring and into the fit; the only
 host copies are the explicit ones for metrics and saving.
 
 Not ported yet (ROADMAP.md): logger backends other than 'none' and the
-brain plots, per-space (banded) features, and the response prefetch.
+brain plots, per-space (banded) features, speech (features, times) tuples,
+and the response prefetch.
 """
 
 import logging
@@ -109,7 +110,10 @@ class AbstractTrainer:
         return "wordrate" not in extractor.__class__.__name__.lower()
 
     def extract_and_downsample_features(self) -> Dict[str, torch.Tensor]:
-        """Per-story extraction + downsampling (two-stage path)."""
+        """Per-story extraction + downsampling (two-stage path), with any
+        Downsampler method: downsample_config names it ('rect' when it does
+        not) and its parameters; the story's word times, TR times and
+        split indices always go along, as in the JAX trainer."""
         all_features = {}
         for story in self.stories_to_process:
             idx = self.assembly.stories.index(story)

@@ -26,6 +26,7 @@ from litcoder_core_torch import (
     fit_nested_cv,
 )
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
+from litcoder_core_torch.parallel import nested_cv_step
 
 torch.set_num_threads(2)
 
@@ -47,6 +48,9 @@ def test_every_module_imports_without_jax():
     assert "litcoder_core_torch.trainer" in names
     assert "litcoder_core_torch.ops.lanczos_fir" in names
     assert "litcoder_core_torch.models.normalizer" in names
+    for name in ("parallel.step", "ops.segment",
+                 "assembly.assembly_loader"):
+        assert f"litcoder_core_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -113,6 +117,12 @@ def _entry_points(tmp_path):
         "Downsampler.downsample": lambda: Downsampler().downsample(
             np.zeros((5, 2)), np.arange(5.0), np.arange(3.0),
             method="lanczos", window=3, cutoff_mult=1.0),
+        "Downsampler.downsample (default method)": lambda: Downsampler(
+        ).downsample(np.zeros((5, 2)), np.arange(5.0), np.arange(3.0)),
+        "nested_cv_step": lambda: nested_cv_step(
+            np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
+            [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
+                2, 10)),
     }
 
 
@@ -121,7 +131,9 @@ def _entry_points(tmp_path):
                                   "fit_nested_cv",
                                   "NestedCVModel.fit_predict (full CV)",
                                   "fit_nested_cv (full CV)", "lanczos_fir",
-                                  "Downsampler.downsample"])
+                                  "Downsampler.downsample",
+                                  "Downsampler.downsample (default method)",
+                                  "nested_cv_step"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.
     (torch.cuda.is_available is forced False so the test means the same
