@@ -6,7 +6,9 @@ Run from the repository root: python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
   1. device: a CUDA card is required; its name and power limit as nvidia-smi
      reports them.
-  2. build: nvcc builds csrc/lanczos_fir.cu from the checkout.
+  2. build: nvcc builds csrc/lanczos_fir.cu from the checkout; the
+     versions of the optional packages (transformers, tensorboard,
+     matplotlib, seaborn) or that they are absent.
   3. kernel: the fused Lanczos+FIR CUDA kernel against its plain torch
      version on the card (atol 1e-4, the bar the TPU kernel met against the
      two-stage path), at the trainer's main shape, at the main shape with
@@ -37,7 +39,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
      scan and refit each run took (the step's log line), the same alphas
      and correlations within 1e-5 on card and CPU. Then the ten Downsampler
      methods on one small story, card against CPU within 1e-5 of the CPU's
-     largest magnitude.
+     largest magnitude. Then the language-model extractor: a tiny GPT-2
+     (2 layers, width 16; a stand-in decoder of that shape without
+     transformers) over HashStubTokenizer fullcontext windows of three
+     small stories, every layer card against CPU within 1e-5 of the CPU's
+     largest magnitude, and the port's trainer on those stories (responses
+     carrying a signal of the CPU's layer-1 features) on both, with the
+     same alphas and the parity bars above.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
@@ -93,10 +101,29 @@ Phases, one line each; any failure exits non-zero and prints no result:
      the phase 5 trainer with downsample_config={'method': 'average'} (the
      two-stage path with per-word TR ids): stage split, median r above
      AVERAGE_MEDIAN_R_FLOOR, finite metrics, the Cholesky search.
-Phases 5 and 6 set the kernel's launch count to 0 just before they run and
-read it just after; phases 7-10 call the fit or the step directly and
+ 12. language-model trainer at full width: a GPT-2-small-shaped model
+     (GPT2Model(GPT2Config()) when transformers imports, else a stand-in
+     decoder of the same shape defined here; random init under
+     torch.manual_seed(0)) through the port's LM extractor and trainer on
+     the card, on the first 12 stories of the phase 5 assembly with their
+     stimuli replaced by fullcontext windows of 256 words over
+     HashStubTokenizer (about 1,600 windows a story: one prefix chain of
+     256, the rest full windows of 257 tokens), layer 9, last-token
+     pooling, batches of 64, the fused Lanczos+FIR stage, LeBel trimming.
+     Checks: (a) story 0's first 64 windows and 8 full windows from its
+     middle, card against CPU within 1e-3 of the CPU's largest magnitude on
+     every layer; (b) the same windows with prefix sharing on and off on
+     the card within 1e-4; (c) 12 kernel launches in the first train();
+     (d) finite metrics and the JAX fit's solver_paths (the dual search);
+     (e) a second train() on the same cache directory runs no forward and
+     gives the same metrics. Prints windows, real and padded tokens,
+     forwards, windows/s and tokens/s, the extractor's summed stage
+     seconds, both runs' stage split, peak memory and median r.
+Phases 5, 6 and 12 set the kernel's launch count to 0 just before they run
+and read it just after; phases 7-10 call the fit or the step directly and
 print each fit's wall, median r, route and peak device memory. The last
-two lines are a JSON record of the kernel and {"ok": true, "device":
+two lines are a JSON record of the kernel (launches on the main path,
+on the Narratives path and on the LM path) and {"ok": true, "device":
 {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -300,6 +327,19 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def optional_packages() -> str:
+    """The versions of the packages the port imports only on demand."""
+    import importlib
+
+    found = []
+    for name in ("transformers", "tensorboard", "matplotlib", "seaborn"):
+        try:
+            found.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError:
+            found.append(f"{name} absent")
+    return ", ".join(found)
 
 
 def make_times(rng, t_w, t_tr, span):
@@ -876,14 +916,17 @@ def small_downsample_phase():
 
 
 def report_path_run(metrics, wall, peak, smi_line, floor):
+    """Prints a trainer run; the median r must beat `floor` unless it is
+    None."""
     print(f"  trainer_stage_seconds {json.dumps(metrics['trainer_stage_seconds'])}"
           f" (train() wall {wall:.3f} s)", flush=True)
-    print(f"  median r {metrics['median_score']:.6f} (floor {floor}), "
+    print(f"  median r {metrics['median_score']:.6f} "
+          f"({'no floor' if floor is None else f'floor {floor}'}), "
           f"n_significant {metrics['n_significant']}", flush=True)
     print(f"  solver_paths {metrics['solver_paths']}", flush=True)
     print(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), "
           f"card: {smi_line}", flush=True)
-    if not metrics["median_score"] > floor:
+    if floor is not None and not metrics["median_score"] > floor:
         raise AssertionError(f"median r {metrics['median_score']} <= {floor}")
 
 
@@ -1494,6 +1537,380 @@ def average_trainer_phase(asm, kv_path, workdir, smi_line):
     report_path_run(metrics, wall, peak, smi_line, AVERAGE_MEDIAN_R_FLOOR)
 
 
+# Phases 4 and 12: the language-model extractor. README section 3's
+# extractor: GPT-2 at layer 9, last-token pooling, fullcontext windows of
+# 256 words (each word is one HashStubTokenizer token, so a window holds up
+# to 257 tokens with its BOS). GPT2Config() is GPT-2-small's published
+# shape (12 layers, width 768, 12 heads, 1,024 positions, vocab 50,257);
+# phase 4's model is 2 layers of width 16.
+LM_LOOKBACK, LM_LAYER, LM_BATCH = 256, 9, 64
+LM_STORIES = 12
+GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                  n_head=12)
+GPT2_TINY = dict(vocab_size=600, n_positions=1024, n_embd=16, n_layer=2,
+                 n_head=2)
+# Check (a): story 0's first 64 windows (one prefix chain) and 8 full-length
+# windows from its middle, card against CPU under fixed weights, within
+# 1e-3 of the CPU's largest magnitude (fp32 forwards with TF32 off, summed
+# in another order over 12 layers); (b) the same windows with prefix sharing
+# on and off on the card, within 1e-4. Phase 4's tiny model: 1e-5.
+LM_CHECK_CHAIN, LM_CHECK_FULL = 64, 8
+LM_CARD_CPU_RTOL, LM_PREFIX_RTOL, LM_SMALL_RTOL = 1e-3, 1e-4, 1e-5
+# The JAX fit's route for 11 training stories of 305 rows at D = 768 x 4:
+# each inner fold trains on about 2,684 rows < 3,072 features, so the fit
+# takes the dual (kernel) search.
+LM_PATHS = _paths("dual")
+
+
+def stand_in_decoder(vocab_size, n_positions, n_embd, n_layer, n_head):
+    """Built only when `transformers` is absent: a GPT-2-shaped decoder in
+    plain torch (token and position embeddings, pre-LN blocks of causal
+    attention and a GELU MLP, a final LN) with Hugging Face's call surface:
+    model(input_ids=, attention_mask=, output_hidden_states=True) returns an
+    object whose .hidden_states are the embeddings, each block's output and,
+    in place of the last, the final LN of it, as GPT2Model's are; its
+    .config has model_type 'gpt2', n_embd and n_layer."""
+    import types
+
+    import torch
+    from torch import nn
+
+    class Block(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln_1 = nn.LayerNorm(n_embd)
+            self.c_attn = nn.Linear(n_embd, 3 * n_embd)
+            self.c_proj = nn.Linear(n_embd, n_embd)
+            self.ln_2 = nn.LayerNorm(n_embd)
+            self.c_fc = nn.Linear(n_embd, 4 * n_embd)
+            self.mlp_proj = nn.Linear(4 * n_embd, n_embd)
+
+        def forward(self, h, allowed):
+            b, t, d = h.shape
+            q, k, v = self.c_attn(self.ln_1(h)).split(d, dim=2)
+            q, k, v = (x.view(b, t, n_head, d // n_head).transpose(1, 2)
+                       for x in (q, k, v))
+            scores = (q @ k.transpose(-1, -2)) / (d // n_head) ** 0.5
+            scores = scores.masked_fill(~allowed[:, None],
+                                        torch.finfo(scores.dtype).min)
+            a = (scores.softmax(dim=-1) @ v).transpose(1, 2)
+            h = h + self.c_proj(a.reshape(b, t, d))
+            return h + self.mlp_proj(nn.functional.gelu(
+                self.c_fc(self.ln_2(h)), approximate="tanh"))
+
+    class Decoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.config = types.SimpleNamespace(
+                model_type="gpt2", n_embd=n_embd, n_layer=n_layer)
+            self.wte = nn.Embedding(vocab_size, n_embd)
+            self.wpe = nn.Embedding(n_positions, n_embd)
+            self.h = nn.ModuleList(Block() for _ in range(n_layer))
+            self.ln_f = nn.LayerNorm(n_embd)
+            for p in self.parameters():
+                if p.dim() > 1:
+                    nn.init.normal_(p, std=0.02)
+
+        def forward(self, input_ids, attention_mask,
+                    output_hidden_states=True):
+            t = input_ids.shape[1]
+            pos = torch.arange(t, device=input_ids.device)
+            h = self.wte(input_ids) + self.wpe(pos)[None]
+            causal = torch.ones(t, t, dtype=torch.bool,
+                                device=input_ids.device).tril()
+            allowed = causal[None] & attention_mask.bool()[:, None, :]
+            hidden = [h]
+            for block in self.h:
+                h = block(h, allowed)
+                hidden.append(h)
+            hidden[-1] = self.ln_f(h)
+            return types.SimpleNamespace(hidden_states=tuple(hidden))
+
+    return Decoder()
+
+
+def lm_model(shape):
+    """(model on the CPU, description): GPT2Model(GPT2Config(**shape))
+    initialised under torch.manual_seed(0), or the stand-in decoder of that
+    shape when transformers is absent."""
+    import torch
+
+    torch.manual_seed(0)
+    try:
+        import transformers
+    except ImportError:
+        return (stand_in_decoder(**shape).eval(),
+                "stand-in decoder (transformers absent)")
+    from transformers import GPT2Config, GPT2Model
+
+    return (GPT2Model(GPT2Config(**shape)).eval(),
+            f"transformers {transformers.__version__} GPT2Model")
+
+
+def fullcontext_windows(words, lookback=LM_LOOKBACK):
+    """base_processor._process_fullcontext over HashStubTokenizer: the words
+    max(0, i - lookback)..i, encoded, cut to their last `lookback` tokens
+    and decoded; each word is one token, so the decode keeps the last
+    `lookback` words."""
+    from litcoder_core_torch.utils.testing import HashStubTokenizer
+
+    tok = HashStubTokenizer()
+    windows = []
+    for i, w in enumerate(words):
+        if w == "":
+            windows.append("")
+            continue
+        text = " ".join(words[max(0, i - lookback):i + 1])
+        n_tokens = len(tok.encode(text))
+        if n_tokens > lookback:
+            text = " ".join(text.split()[-lookback:])
+        windows.append(text.strip())
+    return windows
+
+
+def lm_extractor(model, device, **config):
+    """The port's extractor on an injected model (moved to `device`)."""
+    from litcoder_core_torch.features.language_model import (
+        LanguageModelFeatureExtractor,
+    )
+    from litcoder_core_torch.utils.testing import HashStubTokenizer
+
+    return LanguageModelFeatureExtractor({
+        "model_name": "gpt2-random-init", "model": model,
+        "tokenizer": HashStubTokenizer(), "device": device,
+        "batch_size": LM_BATCH, **config})
+
+
+def compare_layers(label, got, want, rtol):
+    """Every layer of `got` within rtol x max |want| of `want`; returns the
+    worst ratio."""
+    worst = 0.0
+    for layer in want:
+        scale = float(np.max(np.abs(want[layer])))
+        err = float(np.max(np.abs(got[layer] - want[layer])))
+        worst = max(worst, err / scale)
+        if not err <= rtol * scale:
+            raise AssertionError(f"{label}: layer {layer} differs by {err} "
+                                 f"> {rtol} x {scale}")
+    print(f"  {label}: {len(want)} layers, worst max |d| / max |ref| "
+          f"{worst:.3e} (bar {rtol})", flush=True)
+    return worst
+
+
+def lm_trainer(assembly, extractor_model, device, workdir, label, layer):
+    """(trainer, extractor): the LM extractor from the factory, with its
+    cache in workdir/<label>_cache, in the LeBel trainer."""
+    from litcoder_core_torch import (
+        AbstractTrainer,
+        Downsampler,
+        FeatureExtractorFactory,
+        NestedCVModel,
+    )
+    from litcoder_core_torch.utils.testing import HashStubTokenizer
+
+    ex = FeatureExtractorFactory.create_extractor(
+        "language_model", "gpt2-random-init",
+        {"model": extractor_model, "tokenizer": HashStubTokenizer(),
+         "device": device, "batch_size": LM_BATCH, "last_token": True},
+        cache_dir=os.path.join(workdir, f"{label}_cache"))
+    trainer = AbstractTrainer(
+        assembly=assembly, feature_extractors=[ex],
+        downsampler=Downsampler(),
+        model=NestedCVModel(seed=0, device=device),
+        fir_delays=[1, 2, 3, 4], trimming_config=dict(LEBEL_TRIM),
+        use_train_test_split=True, layer_idx=layer, lookback=LM_LOOKBACK,
+        dataset_type="lebel", logger_backend="none",
+        results_dir=os.path.join(workdir, f"{label}_results"),
+        downsample_config={"method": "lanczos", "window": 3,
+                           "cutoff_mult": 1.0},
+        device=device)
+    return trainer, ex
+
+
+def small_lm_phase(workdir):
+    """A tiny GPT-2 through the port's extractor and trainer on three small
+    stories, card against CPU: every layer's features, then the trainer's
+    alphas and correlations. The responses carry a signal of the CPU's
+    layer-1 features, Lanczos-downsampled and delayed."""
+    import copy
+
+    import torch
+
+    from litcoder_core_torch import SimpleNeuroidAssembly, StoryData
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    model, desc = lm_model(GPT2_TINY)
+    card_model = copy.deepcopy(model).to("cuda")
+    print(f"  model: {desc}, 2 layers of width 16", flush=True)
+    rng = np.random.default_rng(6)
+    n_tr, n_vox, delays = 100, 40, (1, 2, 3, 4)
+    cpu_ex = lm_extractor(model, "cpu")
+    card_ex = lm_extractor(card_model, "cuda")
+    mix = (rng.standard_normal((4 * GPT2_TINY["n_embd"], n_vox))
+           .astype(np.float32) / 8)
+    stories = []
+    for i in range(3):
+        span = n_tr * TR_SECONDS
+        n_words = int(span * WORDS_PER_S)
+        data_times = np.sort(rng.uniform(0, span, n_words)).astype(
+            np.float32)
+        tr_times = (np.arange(n_tr) * TR_SECONDS + TR_SECONDS / 2).astype(
+            np.float32)
+        words = [f"w{k}" for k in rng.integers(0, 300, n_words)]
+        windows = fullcontext_windows(words)
+        want = cpu_ex.extract_all_layers(windows)
+        compare_layers(f"story {i} ({n_words} windows), card vs CPU",
+                       card_ex.extract_all_layers(windows), want,
+                       LM_SMALL_RTOL)
+        feats = lf.lanczos_fir_reference(
+            torch.as_tensor(want[1]), torch.as_tensor(data_times),
+            torch.as_tensor(tr_times), delays).numpy()
+        signal = (feats / feats.std(0).clip(1e-6) @ mix)[10:n_tr - 5]
+        brain = signal + rng.standard_normal(signal.shape).astype(np.float32)
+        split = np.clip((data_times // TR_SECONDS).astype(int), 0, n_tr - 1)
+        stories.append(StoryData(
+            name=f"lm{i}", brain_data=brain.astype(np.float32),
+            stimuli=windows, split_indices=split.tolist(), tr_times=tr_times,
+            data_times=data_times, words=words,
+            word_rates=np.bincount(split, minlength=n_tr).astype(np.float32)))
+    asm = SimpleNeuroidAssembly(stories, validation_method="outer")
+    results = {}
+    for device, m in (("cuda", card_model), ("cpu", model)):
+        before = lf.launches
+        trainer, _ = lm_trainer(asm, m, device, workdir, f"small_lm_{device}",
+                                layer=1)
+        results[device] = trainer.train(chunk_length=10, n_inner_folds=3)
+        check_metrics(results[device], n_vox, np.logspace(-1, 8, 10))
+        print(f"  LM trainer, {device}: median r "
+              f"{results[device]['median_score']:.6f}, solver_paths "
+              f"{results[device]['solver_paths']}, kernel launches "
+              f"{lf.launches - before}", flush=True)
+    gpu, cpu = results["cuda"], results["cpu"]
+    dr = float(np.max(np.abs(np.asarray(gpu["correlations"])
+                             - np.asarray(cpu["correlations"]))))
+    dm = abs(gpu["median_score"] - cpu["median_score"])
+    print(f"  LM trainer, card vs CPU: same alphas "
+          f"{gpu['best_alphas'] == cpu['best_alphas']}, max |dr| {dr:.3e} "
+          f"(bar 2e-3), |d median| {dm:.3e} (bar 1e-3)", flush=True)
+    if gpu["best_alphas"] != cpu["best_alphas"] or dr > 2e-3 or dm > 1e-3:
+        raise AssertionError("LM trainer: card and CPU disagree")
+
+
+def summed_stage_seconds(ex):
+    """Wrap ex.extract_all_layers so that each call's last_stage_seconds
+    adds into the returned dict."""
+    totals = {}
+    extract = ex.extract_all_layers
+
+    def wrapped(*args, **kwargs):
+        out = extract(*args, **kwargs)
+        for key, value in ex.last_stage_seconds.items():
+            totals[key] = totals.get(key, 0.0) + value
+        return out
+
+    ex.extract_all_layers = wrapped
+    return totals
+
+
+def lm_phase(asm, workdir, smi_line):
+    """GPT-2-small-shaped random-init model through the port's LM extractor
+    and trainer at full width on the first LM_STORIES stories of phase 5's
+    assembly, their stimuli replaced by fullcontext windows: checks (a)-(e)
+    and the extraction's counts and rates. Returns the kernel's launches in
+    the first train()."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from litcoder_core_torch import SimpleNeuroidAssembly
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    t0 = time.perf_counter()
+    model, desc = lm_model(GPT2_SMALL)
+    card_model = copy.deepcopy(model).to("cuda")
+    print(f"  model: {desc}, GPT-2-small shape {json.dumps(GPT2_SMALL)}, "
+          f"random init under torch.manual_seed(0), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stories = [dataclasses.replace(
+        asm.story_data[name],
+        stimuli=fullcontext_windows(asm.story_data[name].words))
+        for name in asm.stories[:LM_STORIES]]
+    lm_asm = SimpleNeuroidAssembly(stories, validation_method="outer")
+
+    # (a) and (b) on story 0's first chain and 8 full windows.
+    windows = stories[0].stimuli
+    mid = len(windows) // 2
+    check = windows[:LM_CHECK_CHAIN] + windows[mid:mid + LM_CHECK_FULL]
+    t0 = time.perf_counter()
+    cpu_feats = lm_extractor(model, "cpu").extract_all_layers(check)
+    cpu_s = time.perf_counter() - t0
+    card_feats = lm_extractor(card_model, "cuda").extract_all_layers(check)
+    compare_layers(f"(a) {len(check)} windows, card vs CPU (CPU "
+                   f"{cpu_s:.1f} s)", card_feats, cpu_feats,
+                   LM_CARD_CPU_RTOL)
+    del model
+    flat = lm_extractor(card_model, "cuda", prefix_sharing=False)
+    compare_layers("(b) prefix sharing on vs off, card",
+                   card_feats, flat.extract_all_layers(check),
+                   LM_PREFIX_RTOL)
+
+    runs = []
+    for run in (1, 2):
+        trainer, ex = lm_trainer(lm_asm, card_model, "cuda", workdir, "lm",
+                                 LM_LAYER)
+        stage = summed_stage_seconds(ex)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lf.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.train(chunk_length=20, n_inner_folds=5)
+        wall = time.perf_counter() - t0
+        launches = lf.launches
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(ex.counts)
+        runs.append((metrics, launches, counts))
+        extract_s = stage.get("tokenize_s", 0.0) + stage.get(
+            "forward_total_s", 0.0)
+        print(f"  train() {run}: lanczos_fir launches {launches}; extractor "
+              f"counts {json.dumps(counts)}; summed last_stage_seconds "
+              f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}",
+              flush=True)
+        if counts["windows"]:
+            print(f"  extraction: {counts['windows']} windows, "
+                  f"{counts['real_tokens']} real and "
+                  f"{counts['padded_tokens']} padded tokens in "
+                  f"{counts['chain_forwards']} chain and "
+                  f"{counts['single_forwards']} single forwards; "
+                  f"{counts['windows'] / extract_s:.1f} windows/s, "
+                  f"{counts['real_tokens'] / extract_s:.0f} real and "
+                  f"{counts['padded_tokens'] / extract_s:.0f} padded "
+                  f"tokens/s over tokenize + forward {extract_s:.3f} s",
+                  flush=True)
+        check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10), LM_PATHS)
+        # No floor: random-init features carry no planted signal.
+        report_path_run(metrics, wall, peak, smi_line, None)
+    (m1, launches, counts1), (m2, launches2, counts2) = runs
+    if launches != LM_STORIES:
+        raise AssertionError(f"(c) the kernel ran {launches} times, not "
+                             f"{LM_STORIES}")
+    if counts1["windows"] != sum(len(s.stimuli) for s in stories):
+        raise AssertionError("the first train() did not extract every window")
+    if counts2["windows"] or counts2["chain_forwards"] \
+            or counts2["single_forwards"]:
+        raise AssertionError(f"(e) the second train() ran forwards: {counts2}")
+    dr = float(np.max(np.abs(np.asarray(m1["correlations"])
+                             - np.asarray(m2["correlations"]))))
+    same = m1["best_alphas"] == m2["best_alphas"]
+    print(f"  (c) launches {launches} = {LM_STORIES} stories; (d) "
+          f"solver_paths {m1['solver_paths']}; (e) second train(): "
+          f"{launches2} launches, 0 forwards, same alphas {same}, max |dr| "
+          f"{dr:.3e}", flush=True)
+    if not same or dr > 1e-6:
+        raise AssertionError("(e) the cached run's metrics differ")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1516,6 +1933,7 @@ def main() -> int:
         if any(key in line for key in ("Compiling entry", "registers",
                                        "spill", "smem")):
             print(f"  ptxas: {line.strip()}", flush=True)
+    print(f"  optional packages: {optional_packages()}", flush=True)
 
     phase("3 kernel vs plain on the card")
     record = kernel_phase(torch.device("cuda"))
@@ -1526,6 +1944,7 @@ def main() -> int:
         solver_cases_phase()
         step_cases_phase()
         small_downsample_phase()
+        small_lm_phase(workdir)
 
         phase("5 main path at full size")
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
@@ -1549,6 +1968,9 @@ def main() -> int:
         phase("11 the other downsamplers at full size")
         full_downsample_phase(asm, kv_path)
         average_trainer_phase(asm, kv_path, workdir, smi_line)
+
+        phase("12 language-model trainer at full width")
+        record["launches_lm"] = lm_phase(asm, workdir, smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

@@ -5,13 +5,16 @@ NVIDIA card: the fused Lanczos+FIR step is a hand-written CUDA kernel
 (csrc/lanczos_fir.cu), the rest plain torch ops. Entry points run on the
 card by default and raise without one; pass device='cpu' for the CPU.
 
-Ported so far: AbstractTrainer with wordrate and static embeddings, all
-ten Downsampler methods with FIR delays (Lanczos fused or two-stage, the
-others two-stage), both structuring modes, fit_nested_cv with every
-argument of the JAX fit but mesh/n_devices (every alpha-search path, voxel
-chunking, fast_scan, permutation significance), the fused step
-parallel.nested_cv_step, and load_assembly/save_assembly. ROADMAP.md lists
-the rest.
+Ported so far: AbstractTrainer with wordrate, static-embedding and
+language-model features (the LM extractor runs a torch model on the card,
+with the JAX package's activation caches) and its TensorBoard, W&B or null
+logger with the brain plots, all ten Downsampler methods with FIR delays
+(Lanczos fused or two-stage, the others two-stage), both structuring modes,
+fit_nested_cv with every argument of the JAX fit but mesh/n_devices (every
+alpha-search path, voxel chunking, fast_scan, permutation significance),
+the fused step parallel.nested_cv_step, and load_assembly/save_assembly.
+ROADMAP.md lists the rest. Optional packages (transformers, tensorboard,
+matplotlib, seaborn, wandb, nilearn) are imported only where they are used.
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,16 @@
-"""Static token embeddings from .kv bundles (twin of
+"""Static token embeddings (twin of
 litcoder_core_tpu/features/embeddings.py).
 
-A .kv bundle is an .npz file with 'vectors' (V, D) float32 and 'vocab' (V,)
-strings; the port reads and writes the same files as the JAX package. The
-word2vec/GloVe text and binary readers are not ported yet (ROADMAP.md).
+The JAX package's self-contained loaders, gensim-free: .kv bundles (.npz
+files with 'vectors' (V, D) float32 and 'vocab' (V,) strings; the port reads
+and writes the same files as the JAX package), word2vec binary and text,
+and GloVe's header-less text, gzipped or not.
 """
 
+import gzip
 import os
 import re
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
@@ -46,13 +48,59 @@ class SimpleKeyedVectors:
         data = np.load(path, allow_pickle=True)
         return cls([str(w) for w in data["vocab"]], data["vectors"])
 
+    # ---- word2vec / GloVe readers ------------------------------------------
+
+    @classmethod
+    def load_word2vec_format(cls, path: str, binary: bool = False,
+                             no_header: bool = False) -> "SimpleKeyedVectors":
+        opener = gzip.open if path.endswith(".gz") else open
+        if binary:
+            with opener(path, "rb") as f:
+                header = f.readline().split()
+                vocab_size, dim = int(header[0]), int(header[1])
+                vocab, vecs = [], np.empty((vocab_size, dim), np.float32)
+                width = 4 * dim
+                for i in range(vocab_size):
+                    word = bytearray()
+                    while True:
+                        ch = f.read(1)
+                        if ch == b"":
+                            raise ValueError(
+                                f"truncated word2vec binary file: header "
+                                f"declares {vocab_size} vectors but EOF hit "
+                                f"at vector {i}"
+                            )
+                        if ch == b" ":
+                            break
+                        if ch != b"\n":
+                            word.extend(ch)
+                    vocab.append(word.decode("utf-8", errors="replace"))
+                    vecs[i] = np.frombuffer(f.read(width), np.float32)
+            return cls(vocab, vecs)
+
+        with opener(path, "rt", encoding="utf-8", errors="replace") as f:
+            first = f.readline().rstrip("\n")
+            parts = first.split(" ")
+            vocab, rows = [], []
+            if not no_header and len(parts) == 2:
+                pass  # header consumed
+            else:
+                vocab.append(parts[0])
+                rows.append(np.array(parts[1:], np.float32))
+            for line in f:
+                parts = line.rstrip("\n").split(" ")
+                vocab.append(parts[0])
+                rows.append(np.array(parts[1:], np.float32))
+        return cls(vocab, np.stack(rows))
+
 
 class StaticEmbeddingFeatureExtractor(BaseFeatureExtractor):
     """Token -> static vector lookup with OOV policies.
 
-    Config keys: vector_path (required, a .kv bundle), lowercase,
-    oov_handling (copy_prev|zero|skip|error), l2_normalize_tokens,
-    tokenizer_pattern."""
+    Config keys: vector_path (required: a .kv bundle, or word2vec/GloVe
+    vectors), lowercase, oov_handling (copy_prev|zero|skip|error), binary,
+    no_header (both inferred from the file name when absent),
+    l2_normalize_tokens, tokenizer_pattern."""
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__(config)
@@ -63,13 +111,6 @@ class StaticEmbeddingFeatureExtractor(BaseFeatureExtractor):
         if not os.path.exists(self.vector_path):
             raise FileNotFoundError(
                 f"Vector file not found: {self.vector_path}")
-        ext = self.vector_path.lower()
-        if not (ext.endswith(".kv") or ext.endswith(".kv.npz")):
-            raise NotImplementedError(
-                "only .kv bundles are read by litcoder_core_torch yet; the "
-                "word2vec/GloVe readers are queued in ROADMAP.md"
-            )
-
         self.lowercase = bool(config.get("lowercase", True))
         self.oov_handling = config.get("oov_handling", "copy_prev")
         if self.oov_handling not in {"copy_prev", "zero", "skip", "error"}:
@@ -80,8 +121,10 @@ class StaticEmbeddingFeatureExtractor(BaseFeatureExtractor):
                                                    False))
         self.tokenizer_pattern = config.get("tokenizer_pattern",
                                             r"[A-Za-z0-9_']+")
+        self._force_binary: Optional[bool] = config.get("binary", None)
+        self._force_no_header: Optional[bool] = config.get("no_header", None)
         self._tok_re = re.compile(self.tokenizer_pattern)
-        self.kv = SimpleKeyedVectors.load_kv(self.vector_path)
+        self.kv = self._load_local_vectors(self.vector_path)
         self.dim = self.kv.vector_size
 
     def extract_features(self, stimuli: Union[str, List[str]],
@@ -133,3 +176,39 @@ class StaticEmbeddingFeatureExtractor(BaseFeatureExtractor):
             out = np.where(norms > 0, out / np.where(norms == 0, 1, norms),
                            out)
         return out.astype(np.float32)
+
+    # ---- loading -------------------------------------------------------------
+
+    def _load_local_vectors(self, path: str) -> SimpleKeyedVectors:
+        ext = path.lower()
+        if ext.endswith(".kv") or ext.endswith(".kv.npz"):
+            return SimpleKeyedVectors.load_kv(path)
+        binary = (self._infer_binary(ext) if self._force_binary is None
+                  else bool(self._force_binary))
+        no_header = (self._infer_no_header(ext) if self._force_no_header is None
+                     else bool(self._force_no_header))
+        try:
+            return SimpleKeyedVectors.load_word2vec_format(
+                path, binary=binary, no_header=no_header
+            )
+        except Exception as e:
+            if ext.endswith(".txt") or ext.endswith(".txt.gz"):
+                try:
+                    return SimpleKeyedVectors.load_word2vec_format(
+                        path, binary=False, no_header=not no_header
+                    )
+                except Exception as e2:
+                    raise RuntimeError(
+                        f"Failed to load vectors from {path}: {e} / {e2}"
+                    ) from e2
+            raise
+
+    @staticmethod
+    def _infer_binary(ext: str) -> bool:
+        return ext.endswith(".bin") or ext.endswith(".bin.gz")
+
+    @staticmethod
+    def _infer_no_header(ext: str) -> bool:
+        if ext.endswith(".w2v.txt"):
+            return False
+        return ext.endswith(".txt") or ext.endswith(".txt.gz")

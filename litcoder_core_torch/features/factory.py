@@ -1,7 +1,14 @@
-"""Feature-extractor factory (twin of litcoder_core_tpu/features/factory.py),
-for the wordrate and embeddings modalities. The language-model and speech
-extractors are queued in ROADMAP.md."""
+"""Feature-extractor factory with cache-aware dispatch (twin of
+litcoder_core_tpu/features/factory.py).
 
+The same registry, create/extract API and cache-key semantics: a
+language-model miss computes ALL layers in one batched pass, caches them
+under the JAX package's key (story, lookback, model, context type, pooling,
+dataset; the dtype only when it is not fp32) and serves the requested
+layer, so caches written by either package serve the other. The speech
+extractor is queued in ROADMAP.md."""
+
+from datetime import datetime
 from typing import Any, Dict
 
 import numpy as np
@@ -10,17 +17,22 @@ from litcoder_core_torch.features.base import BaseFeatureExtractor
 from litcoder_core_torch.features.embeddings import (
     StaticEmbeddingFeatureExtractor,
 )
+from litcoder_core_torch.features.language_model import (
+    LanguageModelFeatureExtractor,
+)
 from litcoder_core_torch.features.simple_features import (
     WordRateFeatureExtractor,
 )
+from litcoder_core_torch.utils.caches import ActivationCache
 
-_NOT_PORTED = ("language_model", "speech")
+_NOT_PORTED = ("speech",)
 
 
 class FeatureExtractorFactory:
-    """Creates extractors and dispatches per-story extraction."""
+    """Creates extractors and dispatches cache-aware extraction."""
 
     _extractors = {
+        "language_model": LanguageModelFeatureExtractor,
         "wordrate": WordRateFeatureExtractor,
         "embeddings": StaticEmbeddingFeatureExtractor,
     }
@@ -29,9 +41,8 @@ class FeatureExtractorFactory:
     def create_extractor(cls, modality: str, model_name: str,
                          config: Dict[str, Any],
                          cache_dir: str = "cache") -> BaseFeatureExtractor:
-        """Create an extractor; `cache_dir` is kept for API parity (these
-        modalities keep no activation cache)."""
-        del cache_dir
+        """Create an extractor; a language-model one gets `cache_dir` and an
+        ActivationCache there."""
         if modality in _NOT_PORTED:
             raise NotImplementedError(
                 f"modality {modality!r} is not ported to litcoder_core_torch "
@@ -44,7 +55,11 @@ class FeatureExtractorFactory:
             )
         if "model_name" not in config:
             config["model_name"] = model_name
-        return cls._extractors[modality](config)
+        extractor = cls._extractors[modality](config)
+        if modality == "language_model":
+            extractor.cache_dir = cache_dir
+            extractor.activation_cache = ActivationCache(cache_dir=cache_dir)
+        return extractor
 
     @classmethod
     def extract_features_with_caching(
@@ -52,11 +67,19 @@ class FeatureExtractorFactory:
         idx: int, layer_idx: int = 9, lookback: int = 256,
         dataset_type: str = "narratives",
     ) -> np.ndarray:
-        """Per-story extraction (the name is the JAX package's)."""
+        """Per-story extraction, through the activation cache for the
+        language model."""
         modality = cls._get_modality_from_extractor(extractor)
+        if modality == "language_model":
+            return cls._extract_language_model_features(
+                extractor, assembly, story, idx, layer_idx, lookback,
+                dataset_type,
+            )
         if modality == "wordrate":
             return extractor.extract_features(assembly.get_word_rates()[idx])
-        return extractor.extract_features(assembly.get_words()[idx])
+        if modality == "embeddings":
+            return extractor.extract_features(assembly.get_words()[idx])
+        raise ValueError(f"Unknown modality: {modality}")
 
     @classmethod
     def _get_modality_from_extractor(cls,
@@ -65,3 +88,59 @@ class FeatureExtractorFactory:
             if isinstance(extractor, klass):
                 return modality
         raise ValueError(f"Unknown extractor type: {type(extractor)}")
+
+    @classmethod
+    def _extract_language_model_features(
+        cls, extractor, assembly, story: str, idx: int, layer_idx: int,
+        lookback: int = 256, dataset_type: str = "narratives",
+    ) -> np.ndarray:
+        """LM path: all layers cached on a miss, the requested layer
+        served."""
+        texts = assembly.get_stimuli()[idx]
+        key_params = dict(
+            story=story,
+            lookback=lookback,
+            model_name=extractor.model_name,
+            context_type=getattr(extractor, "context_type", "fullcontext"),
+            last_token=getattr(extractor, "last_token", False),
+            dataset_type=dataset_type,
+            raw=True,
+        )
+        # Non-default compute dtypes key separately (bf16 features must not
+        # collide with fp32 ones); the default is OMITTED so existing fp32
+        # caches keep their keys.
+        dtype = getattr(extractor, "compute_dtype", "float32")
+        if dtype != "float32":
+            key_params["dtype"] = dtype
+        cache_key = extractor.activation_cache._get_cache_key(**key_params)
+        lazy_cache = extractor.activation_cache.load_multi_layer_activations(
+            cache_key
+        )
+        if lazy_cache is not None:
+            return lazy_cache.get_layer(layer_idx)
+
+        all_features = extractor.extract_all_layers(texts)
+        metadata = {
+            "model_name": extractor.model_name,
+            "story": story,
+            "lookback": lookback,
+            "context_type": getattr(extractor, "context_type", "fullcontext"),
+            "hook_type": extractor.hook_type,
+            "last_token": getattr(extractor, "last_token", False),
+            "dataset_type": dataset_type,
+            "available_layers": list(all_features.keys()),
+            "created_at": datetime.now().isoformat(),
+        }
+        extractor.activation_cache.save_multi_layer_activations(
+            cache_key, all_features, metadata
+        )
+        return all_features[layer_idx]
+
+    @classmethod
+    def get_supported_modalities(cls) -> list:
+        return list(cls._extractors.keys())
+
+    @classmethod
+    def register_extractor(cls, modality: str, extractor_class: type):
+        """Plugin hook for custom extractors (see features/custom.py)."""
+        cls._extractors[modality] = extractor_class

@@ -43,3 +43,12 @@ class FIR:
         if self.circpad:
             return nt
         return max(0, nt - max(abs(d) for d in self.delays))
+
+    def summary(self, input_dim: Optional[int] = None,
+                nt: Optional[int] = None) -> str:
+        msg = f"FIR(delays={list(self.delays)}, circpad={self.circpad})"
+        if input_dim is not None:
+            msg += f"\n- Output dim: {self.output_dim(input_dim)}"
+        if nt is not None:
+            msg += f"\n- Valid length: {self.valid_length(nt)}"
+        return msg

@@ -195,11 +195,12 @@ def create_chunked_folds(n_samples: int, n_folds: int, chunk_length: int,
 
 def create_chunked_folds_trimmed(n_samples: int, n_folds: int,
                                  chunk_length: int, trim_size: int = 5,
+                                 shuffle: bool = True,
                                  seed: int = 0) -> List[Fold]:
-    """Shuffled chunked folds with `trim_size` samples cut from each end of
-    every test chunk; train chunks stay whole. Too few chunks: unshuffled
-    KFold."""
-    assignment = _chunk_assignment(n_samples, n_folds, chunk_length, True,
+    """Chunked folds (shuffled with np.random.default_rng(seed), or
+    contiguous) with `trim_size` samples cut from each end of every test
+    chunk; train chunks stay whole. Too few chunks: unshuffled KFold."""
+    assignment = _chunk_assignment(n_samples, n_folds, chunk_length, shuffle,
                                    seed)
     if assignment is None:
         logger.warning(

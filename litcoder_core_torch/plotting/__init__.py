@@ -1,5 +1,13 @@
-"""Experiment loggers of the port."""
+"""Experiment loggers and brain plots of the port."""
 
-from litcoder_core_torch.plotting.plotting_utils import Logger, NullLogger
+from litcoder_core_torch.plotting.plotting_utils import (
+    BrainPlotter,
+    Logger,
+    NullLogger,
+    TensorBoardLogger,
+    WandBLogger,
+)
 
-__all__ = ["Logger", "NullLogger"]
+__all__ = [
+    "Logger", "NullLogger", "TensorBoardLogger", "WandBLogger", "BrainPlotter",
+]

@@ -9,21 +9,34 @@ are the means over the outer folds). Tensors live on `device` from the
 fused Lanczos+FIR kernel through structuring and into the fit; the only
 host copies are the explicit ones for metrics and saving.
 
-Not ported yet (ROADMAP.md): logger backends other than 'none' and the
-brain plots, per-space (banded) features, speech (features, times) tuples,
-and the response prefetch.
+Features come from any registered extractor, the language-model one
+included: its numpy (n_words, d_model) layer goes into the fused kernel or
+the Downsampler like static embeddings. Logging follows the JAX trainer:
+TensorBoard by default, W&B or a NullLogger on request, and after the fit
+the correlation histograms (and, at fsaverage5 resolution, surface maps)
+through BrainPlotter on the host.
+
+Not ported yet (ROADMAP.md): per-space (banded) features, speech
+(features, times) tuples, and the response prefetch.
 """
 
 import logging
+from datetime import datetime
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from litcoder_core_torch.features.factory import FeatureExtractorFactory
 from litcoder_core_torch.features.fir_expander import FIR
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
 from litcoder_core_torch.ops.stats import trainer_zscore
-from litcoder_core_torch.plotting.plotting_utils import NullLogger
+from litcoder_core_torch.plotting.plotting_utils import (
+    BrainPlotter,
+    NullLogger,
+    TensorBoardLogger,
+    WandBLogger,
+)
 from litcoder_core_torch.utils.device import (
     as_f32,
     resolve_device,
@@ -50,13 +63,14 @@ class AbstractTrainer:
         layer_idx: int = 9,
         lookback: int = 256,
         dataset_type: str = "unknown",
-        logger_backend: str = "none",
+        logger_backend: str = "tensorboard",
         wandb_project_name: str = "abstract-trainer",
         results_dir: str = "results",
         run_name: Optional[str] = None,
         downsample_config: Optional[Dict] = None,
         story_selection: Optional[List[str]] = None,
         fused_downsample_fir: Any = "auto",
+        device_resident: Any = "auto",
         device="cuda",
     ):
         """fused_downsample_fir: 'auto' runs Lanczos downsampling and FIR
@@ -64,8 +78,10 @@ class AbstractTrainer:
         the two-stage path (method 'lanczos' without rectify, all delays
         positive); False keeps the two-stage path; True requires the fused
         one. `device` is where every stage runs ('cuda' by default; with no
-        card it raises)."""
-        del wandb_project_name, run_name  # for logger backends not ported
+        card it raises). `device_resident` is accepted for the JAX
+        signature: the port's stages always keep their tensors on
+        `device`."""
+        del device_resident
         self.device = resolve_device(device)
         self.assembly = assembly
         self.fused_downsample_fir = fused_downsample_fir
@@ -89,13 +105,30 @@ class AbstractTrainer:
         else:
             self.stories_to_process = story_selection
 
-        if logger_backend != "none":
-            raise NotImplementedError(
-                f"logger_backend {logger_backend!r} is not ported to "
-                "litcoder_core_torch yet (see ROADMAP.md); use 'none'"
-            )
-        self.experiment_logger = NullLogger()
+        self.setup_logger(logger_backend, wandb_project_name, results_dir,
+                          run_name)
         self.model_saver = ModelSaver(base_dir=results_dir)
+        self.brain_plotter = BrainPlotter(self.experiment_logger)
+
+    def setup_logger(self, backend: str, project_name: str, results_dir: str,
+                     run_name: Optional[str]):
+        if run_name is None:
+            run_name = (
+                f"abstract-trainer-{datetime.now().strftime('%Y%m%d-%H%M%S')}"
+            )
+        if backend == "wandb":
+            import wandb
+
+            wandb.init(project=project_name, name=run_name)
+            self.experiment_logger = WandBLogger()
+        elif backend == "tensorboard":
+            self.experiment_logger = TensorBoardLogger(
+                log_dir=f"{results_dir}/runs/{run_name}"
+            )
+        elif backend == "none":
+            self.experiment_logger = NullLogger()
+        else:
+            raise ValueError(f"Unsupported logger_backend '{backend}'")
 
     # ------------------------------------------------------------ stage 1
 
@@ -106,7 +139,8 @@ class AbstractTrainer:
         )
 
     def _should_downsample(self, extractor) -> bool:
-        """Wordrate features are already TR-binned."""
+        """Wordrate features are already TR-binned; every other extractor
+        (embeddings, language model) gives one row per word."""
         return "wordrate" not in extractor.__class__.__name__.lower()
 
     def extract_and_downsample_features(self) -> Dict[str, torch.Tensor]:
@@ -317,6 +351,19 @@ class AbstractTrainer:
         log.log_scalar("median_correlation", float(metrics["median_score"]))
         log.log_scalar("mean_correlation", float(metrics["mean_score"]))
         log.log_scalar("std_correlation", float(metrics["std_score"]))
+        if "correlations" in metrics and "significant_mask" in metrics:
+            correlations = np.array(metrics["correlations"])
+            mask = np.array(metrics["significant_mask"], dtype=bool)
+            # Surface plots only apply at fsaverage5 resolution; other voxel
+            # counts are treated as volume-style (histograms only).
+            is_volume = correlations.shape[0] != 20484
+            try:
+                self.brain_plotter.log_plots(correlations, mask, "", None,
+                                             is_volume)
+            except Exception as e:
+                logger.warning("Brain plotting failed: %s", e)
+        if "best_alpha" in metrics:
+            log.log_scalar("best_alpha", float(metrics["best_alpha"]))
         if "n_significant" in metrics:
             log.log_scalar("n_significant_voxels",
                            float(metrics["n_significant"]))

@@ -1,7 +1,14 @@
-"""Per-stage wall-clock accounting (twin of StageTimer in
-litcoder_core_tpu/utils/profiling.py)."""
+"""Tracing and profiling (twin of litcoder_core_tpu/utils/profiling.py).
+
+- StageTimer: per-stage wall-clock accounting with a report.
+- trace(): a torch.profiler context (host, and the card when there is one)
+  that writes a Chrome/Perfetto trace under `log_dir`.
+- annotate(): a named region (torch.profiler.record_function) that shows
+  in such traces.
+"""
 
 import logging
+import os
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Tuple
@@ -44,3 +51,34 @@ class StageTimer:
                         100.0 * dt / total)
         logger.info("stage %-24s %8.3fs", "TOTAL", total)
         return totals
+
+
+@contextmanager
+def trace(log_dir: str, create_perfetto_link: bool = False):
+    """Profile the block with torch.profiler (CPU activity, and CUDA when a
+    card is present) and write its trace to
+    `log_dir`/trace_<pid>_<ns>.json (Chrome trace format; open it in
+    ui.perfetto.dev or chrome://tracing). Yields the profiler. There is no
+    trace server to link to: with `create_perfetto_link` the path of the
+    written file is logged instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(path)
+    if create_perfetto_link:
+        logger.info("trace written to %s; open it in ui.perfetto.dev", path)
+
+
+def annotate(name: str):
+    """Named region annotation visible in profiler traces."""
+    from torch.profiler import record_function
+
+    return record_function(name)

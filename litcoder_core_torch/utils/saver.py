@@ -12,7 +12,7 @@ import logging
 import pickle
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -77,3 +77,29 @@ class ModelSaver:
         with open(run_dir / "metrics.pkl", "rb") as f:
             metrics = pickle.load(f)
         return weights, best_alphas, hyperparams, metrics
+
+    def list_runs(self) -> List[Dict[str, Any]]:
+        """Every run under base_dir, newest first: run_dir, timestamp
+        (date_time of the directory name), hyperparams and metrics. A run
+        that fails to load is logged and skipped."""
+        runs = []
+        for run_dir in self.base_dir.glob("run_*"):
+            if not run_dir.is_dir():
+                continue
+            try:
+                with open(run_dir / "hyperparams.json") as f:
+                    hyperparams = json.load(f)
+                with open(run_dir / "metrics.pkl", "rb") as f:
+                    metrics = pickle.load(f)
+                runs.append({
+                    "run_dir": str(run_dir),
+                    # run_{%Y%m%d}_{%H%M%S}_{hash}: keep date AND time so
+                    # same-day runs sort chronologically.
+                    "timestamp": "_".join(run_dir.name.split("_")[1:3]),
+                    "hyperparams": hyperparams,
+                    "metrics": metrics,
+                })
+            except Exception as e:
+                logger.warning("Error loading run %s: %s", run_dir, e)
+        runs.sort(key=lambda x: x["timestamp"], reverse=True)
+        return runs

@@ -56,6 +56,36 @@ def test_trim_sizes_match_jax(scheme, trim):
                      jax_folds(n, scheme, 5, 20, trim_size=trim, seed=5))
 
 
+@pytest.mark.parametrize("form", ["positional", "keyword"])
+@pytest.mark.parametrize("shuffle", [True, False])
+@pytest.mark.parametrize("n,n_folds,chunk,trim", [(100, 5, 10, 2),
+                                                  (403, 5, 20, 5),
+                                                  (30, 5, 10, 1)])
+def test_chunked_trimmed_shuffle_matches_jax(shuffle, form, n, n_folds,
+                                             chunk, trim):
+    """create_chunked_folds_trimmed has JAX's signature: `shuffle` comes
+    before `seed`, so a positional False is the shuffle flag."""
+    from litcoder_core_tpu.models.folding import (
+        create_chunked_folds_trimmed as jax_trimmed,
+    )
+
+    for seed in (0, 3):
+        if form == "positional":
+            got = tf.create_chunked_folds_trimmed(n, n_folds, chunk, trim,
+                                                  shuffle, seed)
+            want = jax_trimmed(n, n_folds, chunk, trim, shuffle, seed)
+        else:
+            got = tf.create_chunked_folds_trimmed(
+                n, n_folds, chunk, trim_size=trim, shuffle=shuffle,
+                seed=seed)
+            want = jax_trimmed(n, n_folds, chunk, trim_size=trim,
+                               shuffle=shuffle, seed=seed)
+        _assert_same(got, want)
+    if (n, shuffle) == (100, False):
+        np.testing.assert_array_equal(
+            got[0][1], np.r_[np.arange(2, 8), np.arange(12, 18)])
+
+
 @pytest.mark.parametrize("n,n_folds", [(10, 2), (101, 5), (257, 7),
                                        (64, 8)])
 def test_splitters_match_scikit_learn(n, n_folds):

@@ -25,8 +25,12 @@ from litcoder_core_torch import (
     StoryData,
     fit_nested_cv,
 )
+from litcoder_core_torch.features.language_model import (
+    LanguageModelFeatureExtractor,
+)
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
 from litcoder_core_torch.parallel import nested_cv_step
+from litcoder_core_torch.utils.testing import HashStubTokenizer
 
 torch.set_num_threads(2)
 
@@ -49,7 +53,9 @@ def test_every_module_imports_without_jax():
     assert "litcoder_core_torch.ops.lanczos_fir" in names
     assert "litcoder_core_torch.models.normalizer" in names
     for name in ("parallel.step", "ops.segment",
-                 "assembly.assembly_loader"):
+                 "assembly.assembly_loader", "features.language_model",
+                 "features.convert", "features.custom", "utils.caches",
+                 "utils.testing", "utils.core", "plotting.plotting_utils"):
         assert f"litcoder_core_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -60,6 +66,27 @@ def test_every_module_imports_without_jax():
         "m.startswith('jax.') or m.startswith('litcoder_core_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_optional_packages_stay_unimported():
+    """The card's machine may lack transformers, tensorboard, matplotlib or
+    wandb: importing the package and the LM extractor must not import
+    them."""
+    code = (
+        "import sys\n"
+        "import litcoder_core_torch\n"
+        "import litcoder_core_torch.features.language_model\n"
+        "import litcoder_core_torch.utils\n"
+        "import litcoder_core_torch.plotting\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('transformers', 'tensorboard', 'matplotlib', 'wandb', "
+        "'seaborn', 'nilearn'))\n"
+        "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -119,6 +146,10 @@ def _entry_points(tmp_path):
             method="lanczos", window=3, cutoff_mult=1.0),
         "Downsampler.downsample (default method)": lambda: Downsampler(
         ).downsample(np.zeros((5, 2)), np.arange(5.0), np.arange(3.0)),
+        "LanguageModelFeatureExtractor": lambda: (
+            LanguageModelFeatureExtractor({
+                "model_name": "m", "model": torch.nn.Linear(2, 2),
+                "tokenizer": HashStubTokenizer()})),
         "nested_cv_step": lambda: nested_cv_step(
             np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
             [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
@@ -133,6 +164,7 @@ def _entry_points(tmp_path):
                                   "fit_nested_cv (full CV)", "lanczos_fir",
                                   "Downsampler.downsample",
                                   "Downsampler.downsample (default method)",
+                                  "LanguageModelFeatureExtractor",
                                   "nested_cv_step"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.

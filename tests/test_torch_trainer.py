@@ -1,11 +1,15 @@
 """Port parity for the trainer slice: litcoder_core_torch.AbstractTrainer on
 the CPU against the JAX AbstractTrainer, on the synthetic stories of
 tests/test_trainer_e2e.py cut to the LeBel layout (brain data of n_TR - 15
-rows, the trimming of examples/train_simple.py), with wordrate and static
-embeddings as features. Also the state carried between the packages:
-assemblies, .kv bundles and saved runs."""
+rows, the trimming of examples/train_simple.py), with wordrate, static
+embeddings and a tiny GPT-2 as features (the JAX extractor on its Flax
+model, the port's on the torch twin with the same weights). Also the state
+carried between the packages: assemblies, .kv bundles and saved runs; and
+the loggers: both trainers record the same names, by default in a
+TensorBoard run under results_dir/runs/."""
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +20,11 @@ import litcoder_core_torch as T
 from litcoder_core_torch.assembly.convert import assembly_from_reference
 from litcoder_core_torch.features.embeddings import SimpleKeyedVectors
 from litcoder_core_torch.utils.saver import ModelSaver
+from litcoder_core_torch.utils.testing import HashStubTokenizer
+from tests.test_torch_language_model import (  # noqa: F401 (a fixture)
+    _fullcontext,
+    gpt2_pair,
+)
 from tests.test_trainer_e2e import _make_story
 
 torch.set_num_threads(2)
@@ -56,7 +65,7 @@ def kv_path(jax_assembly, tmp_path_factory):
 def _trainer(pkg, assembly, kv_path, results_dir, **overrides):
     """The same configuration for either package (`pkg` is J or T)."""
     cfg = {"vector_path": kv_path, "lowercase": False}
-    extractors = [
+    extractors = None if kv_path is None else [
         pkg.FeatureExtractorFactory.create_extractor("wordrate", "wordrate",
                                                      {}),
         pkg.FeatureExtractorFactory.create_extractor("embeddings", "vecs",
@@ -75,6 +84,8 @@ def _trainer(pkg, assembly, kv_path, results_dir, **overrides):
     if pkg is T:
         kwargs["device"] = "cpu"
     kwargs.update(overrides)
+    if kwargs["logger_backend"] is None:  # the trainer's default
+        del kwargs["logger_backend"]
     return pkg.AbstractTrainer(**kwargs)
 
 
@@ -215,14 +226,174 @@ def test_saved_runs_cross_packages(runs, tmp_path):
 
 def test_unported_trainer_options_raise(jax_assembly, kv_path, tmp_path):
     asm = assembly_from_reference(jax_assembly)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(T, asm, kv_path, tmp_path, logger_backend="tensorboard")
+    with pytest.raises(ValueError, match="Unsupported logger_backend"):
+        _trainer(T, asm, kv_path, tmp_path, logger_backend="mlflow")
     out = T.Downsampler().downsample(np.zeros((3, 1)), np.arange(3.0),
                                      np.arange(2.0), method="average",
                                      split_indices=[0, 0, 1], device="cpu")
     assert tuple(out.shape) == (2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.FeatureExtractorFactory.create_extractor("language_model", "m", {})
+        T.FeatureExtractorFactory.create_extractor("speech", "m", {})
+    assert T.FeatureExtractorFactory.get_supported_modalities() == [
+        "language_model", "wordrate", "embeddings"]
+
+
+# ---- loggers -----------------------------------------------------------
+
+
+def test_null_logger_names_match_jax(runs):
+    """The 'none' backend still records the brain plots' names: two images
+    and two histograms, besides the same scalars."""
+    jt, _, tt, _ = runs
+    port, ref = tt.experiment_logger, jt.experiment_logger
+    assert port.images == ref.images == [
+        "correlation_histogram_all", "correlation_histogram_significant"]
+    assert port.histograms == ref.histograms == [
+        "correlation_histogram_data_all",
+        "correlation_histogram_data_significant"]
+    assert set(port.scalars) == set(ref.scalars)
+    assert {"median_correlation", "n_significant_voxels",
+            "stage_seconds/fit_predict"} <= set(port.scalars)
+
+
+def _event_tags(run_dir):
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    tags = EventAccumulator(str(run_dir)).Reload().Tags()
+    return {kind: sorted(tags[kind])
+            for kind in ("scalars", "images", "histograms")}
+
+
+def test_default_backend_writes_tensorboard_runs(jax_assembly, kv_path,
+                                                 tmp_path):
+    """Without logger_backend both trainers log to TensorBoard in
+    results_dir/runs/<run_name>, with the same tags."""
+    from litcoder_core_torch.plotting import TensorBoardLogger
+    from litcoder_core_tpu.plotting import TensorBoardLogger as JaxTB
+
+    tags = {}
+    for pkg, cls in ((J, JaxTB), (T, TensorBoardLogger)):
+        results = tmp_path / pkg.__name__
+        asm = (jax_assembly if pkg is J
+               else assembly_from_reference(jax_assembly))
+        trainer = _trainer(pkg, asm, kv_path, results, logger_backend=None)
+        assert isinstance(trainer.experiment_logger, cls)
+        trainer.train(**FIT)
+        trainer.experiment_logger.close()
+        (run_dir,) = list((results / "runs").iterdir())
+        assert run_dir.name.startswith("abstract-trainer-")
+        tags[pkg] = _event_tags(run_dir)
+    assert tags[T] == tags[J]
+    assert tags[T]["images"] == ["correlation_histogram_all",
+                                 "correlation_histogram_significant"]
+    assert tags[T]["histograms"] == ["correlation_histogram_data_all",
+                                     "correlation_histogram_data_significant"]
+    assert "median_correlation" in tags[T]["scalars"]
+    named = _trainer(T, assembly_from_reference(jax_assembly), kv_path,
+                     tmp_path / "named", logger_backend="tensorboard",
+                     run_name="mine")
+    named.experiment_logger.close()
+    assert (tmp_path / "named" / "runs" / "mine").is_dir()
+
+
+def test_wandb_backend_with_a_stub(jax_assembly, kv_path, tmp_path,
+                                   monkeypatch):
+    import sys
+    import types
+
+    from litcoder_core_torch.plotting import WandBLogger
+
+    wandb = types.ModuleType("wandb")
+    wandb.inits, wandb.logged = [], []
+    wandb.init = lambda **kw: wandb.inits.append(kw)
+    wandb.log = wandb.logged.append
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    trainer = _trainer(T, assembly_from_reference(jax_assembly), kv_path,
+                       tmp_path, logger_backend="wandb",
+                       wandb_project_name="proj", run_name="r1")
+    assert wandb.inits == [{"project": "proj", "name": "r1"}]
+    assert isinstance(trainer.experiment_logger, WandBLogger)
+    assert trainer.brain_plotter.logger is trainer.experiment_logger
+
+
+# ---- the language-model extractor through both trainers -----------------
+
+LM_STORIES = 3
+
+
+@pytest.fixture(scope="module")
+def lm_runs(gpt2_pair, tmp_path_factory):
+    """({mode: (JAX metrics, port metrics)}, the port's extractor) for a
+    tiny GPT-2 on three stories whose stimuli are fullcontext windows of 8
+    words, in both structuring modes; the second mode is served from each
+    package's activation cache."""
+    fm, tm = gpt2_pair
+    stories = []
+    for i in range(LM_STORIES):
+        sd = _make_story(f"lm{i}", n_trs=120)
+        stories.append(dataclasses.replace(sd,
+                                           stimuli=_fullcontext(sd.words, 8)))
+    lebel = [dataclasses.replace(sd, brain_data=sd.brain_data[10:-5])
+             for sd in stories]
+    out = tmp_path_factory.mktemp("lm")
+    config = {"tokenizer": HashStubTokenizer(), "batch_size": 64}
+    extractors = {
+        J: J.FeatureExtractorFactory.create_extractor(
+            "language_model", "tiny-gpt2",
+            dict(config, model=fm, backend="flax"),
+            cache_dir=str(out / "jax_cache")),
+        T: T.FeatureExtractorFactory.create_extractor(
+            "language_model", "tiny-gpt2",
+            dict(config, model=tm, device="cpu"),
+            cache_dir=str(out / "torch_cache")),
+    }
+    modes = {
+        "train_test": (lebel, dict(LEBEL_TRIM), True, FIT),
+        "full_cv": (stories, {"features_start": 3, "features_end": -2,
+                              "targets_start": 3, "targets_end": -2}, False,
+                    dict(chunk_length=10, n_outer_folds=3, n_inner_folds=3)),
+    }
+    results = {}
+    for mode, (story_data, trim, split, fit) in modes.items():
+        jasm = J.SimpleNeuroidAssembly(story_data, validation_method="outer")
+        got = {}
+        for pkg, asm in ((J, jasm), (T, assembly_from_reference(jasm))):
+            trainer = _trainer(pkg, asm, None, out / f"{mode}_{pkg.__name__}",
+                               feature_extractors=[extractors[pkg]],
+                               trimming_config=trim,
+                               use_train_test_split=split, layer_idx=1,
+                               lookback=8)
+            got[pkg] = trainer.train(**fit)
+        results[mode] = got[J], got[T]
+    return results, extractors[T], stories
+
+
+@pytest.mark.parametrize("mode", ["train_test", "full_cv"])
+def test_lm_trainer_matches_jax(lm_runs, mode):
+    mj, mt = lm_runs[0][mode]
+    np.testing.assert_array_equal(np.asarray(mt["best_alphas"]),
+                                  np.asarray(mj["best_alphas"]))
+    np.testing.assert_allclose(mt["correlations"], mj["correlations"],
+                               atol=2e-3)
+    assert abs(mt["median_score"] - mj["median_score"]) <= 1e-3
+    assert mt["solver_paths"] == mj["solver_paths"]
+    assert set(mt) == set(mj)
+    assert set(mt["trainer_stage_seconds"]) == {
+        "extract_downsample_fir_fused", "structure_data", "fit_predict",
+        "log_and_save"}
+
+
+def test_lm_trainer_extracts_once_and_caches(lm_runs):
+    """Each story's windows are extracted once (chains included) and cached;
+    the second mode is served from the cache."""
+    _, ex, stories = lm_runs
+    assert ex.counts["windows"] == sum(
+        sum(1 for s in sd.stimuli if s) for sd in stories)
+    assert ex.counts["chain_forwards"] > 0
+    assert ex.counts["single_forwards"] > 0
+    assert len(list(Path(ex.cache_dir).glob("*.npz"))) == LM_STORIES
 
 
 @pytest.mark.parametrize("oov", ["copy_prev", "zero", "skip", "error"])
