@@ -8,15 +8,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
      reports them.
   2. build: nvcc builds csrc/lanczos_fir.cu from the checkout; the
      versions of the optional packages (transformers, tensorboard,
-     matplotlib, seaborn) or that they are absent.
+     matplotlib, seaborn) or that they are absent, and whether pandas,
+     scipy, soundfile, nibabel and nilearn are installed (read without
+     importing them).
   3. kernel: the fused Lanczos+FIR CUDA kernel against its plain torch
      version on the card (atol 1e-4, the bar the TPU kernel met against the
      two-stage path), at the trainer's main shape, at the main shape with
      word times permuted, with a 60 s silent gap and with descending TR
      times, at the shapes of tests/test_pallas_kernels.py, at one shape
-     of two scan passes and at the Narratives 21styear shape (8,434 words,
-     2,249 TRs, D=768, delays 1-8); the word tiles each launch visits beside
-     the dense count. Times at the main and the Narratives shapes: the
+     of two scan passes, at the Narratives 21styear shape (8,434 words,
+     2,249 TRs, D=768, delays 1-8) and at the speech shape (3,441 frames at
+     16.0 + 0.1 i s onto 240 TRs of 1.5 s, D=768, delays 1-8, whose first
+     TR tile no frame reaches: those rows must be exact zeros); the word
+     tiles each launch visits beside the dense count. Times at the main,
+     the Narratives and the speech shapes: the
      kernel and torch.matmul(K_all, data) each as back-to-back launches
      between one pair of CUDA events, rotating over operand sets that
      together exceed the 50 MB L2 (so each launch finds its operands cold),
@@ -45,7 +50,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
      small stories, every layer card against CPU within 1e-5 of the CPU's
      largest magnitude, and the port's trainer on those stories (responses
      carrying a signal of the CPU's layer-1 features) on both, with the
-     same alphas and the parity bars above.
+     same alphas and the parity bars above. Then the speech extractor: a
+     tiny Wav2Vec2 (2 layers of width 24) in both feature-encoder norm
+     variants ('layer' with stable layer norm, and 'group') and both pools
+     over 180 s of audio, every layer card against CPU within 1e-5 of the
+     CPU's largest magnitude, and phase 13's Narratives trainer on that
+     tiny data dir (120 TRs, 40 voxels) on both, with the same alphas and
+     the parity bars above.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
@@ -119,12 +130,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
      gives the same metrics. Prints windows, real and padded tokens,
      forwards, windows/s and tokens/s, the extractor's summed stage
      seconds, both runs' stage split, peak memory and median r.
-Phases 5, 6 and 12 set the kernel's launch count to 0 just before they run
-and read it just after; phases 7-10 call the fit or the step directly and
-print each fit's wall, median r, route and peak device memory. The last
-two lines are a JSON record of the kernel (launches on the main path,
-on the Narratives path and on the LM path) and {"ok": true, "device":
-{...}}.
+ 13. README section 3 with speech features at full width: a Narratives
+     data dir written from a seed (one 21styear story of 240 TRs of 1.5 s,
+     words at about 2.5 words/s, 360 s of 16 kHz audio, an empty
+     placeholder with the BOLD NIfTI's name) and the surface cache seeded
+     with its (240, 20484) responses, a planted signal of the delayed word
+     rate plus noise, so AssemblyGenerator.generate_assembly('narratives',
+     ...) takes the processor's cache-hit path and needs no nibabel; then
+     the factory's speech extractor on Wav2Vec2Model(Wav2Vec2Config())
+     (wav2vec2-base's width and depth, random init under
+     torch.manual_seed(0)) with cli.py's windows of 16 s every 0.1 s
+     (3,441 windows), layer 9, last-frame pooling, beside the wordrate
+     extractor, into AbstractTrainer(use_train_test_split=False) with
+     delays 1-8 (D = 8 x 768 + 8), trims 14:-9 and section 3's fit.
+     Checks: (a) the first 4 windows card against CPU within 1e-3 of the
+     CPU's largest magnitude on every layer; (b) 1 kernel launch in
+     train(); (c) finite metrics and the JAX fit's solver_paths (per-fold,
+     dual search); (d) a second train() on the same cache directory runs
+     no forward and gives the same metrics bit for bit. Prints windows,
+     windows/s, audio seconds per wall second, the host preprocessing of
+     64 windows timed alone, both runs' stage split, peak memory and
+     median r.
+Phases 5, 6, 12 and 13 set the kernel's launch count to 0 just before they
+run and read it just after; phases 7-10 call the fit or the step directly
+and print each fit's wall, median r, route and peak device memory. The
+last two lines are a JSON record of the kernel (launches on the main path,
+on the Narratives, LM and speech paths; times at the Narratives and the
+speech shapes) and {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
 """
@@ -167,13 +199,24 @@ GAP_SECONDS = 60.0
 NARR_TR, NARR_TR_SECONDS, NARR_DELAYS = 2249, 1.5, tuple(range(1, 9))
 NARR_WORDS = int(NARR_TR * NARR_TR_SECONDS * 2.5)
 
+# The speech extractor's frames over phase 13's 360 s of audio (cli.py's
+# speech defaults: a 16 s context at 0.1 s strides): 3,441 frame times
+# 16.0 + 0.1 i at wav2vec2-base's width, onto 240 TRs of 1.5 s from 0 s,
+# 8 delays. TRs more than the Lanczos reach (3 lobes of 1.5 s) before the
+# first frame get no frame: the first TR tile's rows must come out as
+# exact zeros.
+SPEECH_FRAMES, SPEECH_FIRST_FRAME, SPEECH_STRIDE = 3441, 16.0, 0.1
+SPEECH_TR, SPEECH_TR_SECONDS = 240, 1.5
+
 # Back-to-back timing: distinct operand sets (TIMING_SETS at the main shape,
 # NARR_TIMING_SETS at the Narratives shape, where each set alone exceeds the
-# L2), each launched TIMING_ROUNDS times per timed run. A spin kernel of
+# L2, SPEECH_TIMING_SETS of 16.5 MB at the speech shape), each launched
+# TIMING_ROUNDS times per timed run. A spin kernel of
 # HOLD_CYCLES clock cycles holds the stream while the host enqueues, so the
 # host's launch overhead does not enter the device time.
 TIMING_SETS = 12
 NARR_TIMING_SETS = 3
+SPEECH_TIMING_SETS = 6
 TIMING_ROUNDS = 10
 HOLD_CYCLES = 20_000_000
 
@@ -330,8 +373,12 @@ def nvidia_smi_line() -> str:
 
 
 def optional_packages() -> str:
-    """The versions of the packages the port imports only on demand."""
+    """The versions of the packages the port imports only on demand, then
+    whether the data-layer packages are installed (read from their
+    metadata, without importing them: the port must not need pandas)."""
     import importlib
+    import importlib.metadata
+    import importlib.util
 
     found = []
     for name in ("transformers", "tensorboard", "matplotlib", "seaborn"):
@@ -339,6 +386,14 @@ def optional_packages() -> str:
             found.append(f"{name} {importlib.import_module(name).__version__}")
         except ImportError:
             found.append(f"{name} absent")
+    for name in ("pandas", "scipy", "soundfile", "nibabel", "nilearn"):
+        if importlib.util.find_spec(name) is None:
+            found.append(f"{name} absent")
+            continue
+        try:
+            found.append(f"{name} {importlib.metadata.version(name)}")
+        except importlib.metadata.PackageNotFoundError:
+            found.append(f"{name} present")
     return ", ".join(found)
 
 
@@ -498,9 +553,36 @@ def narratives_shape(rng):
     return data, dt, tt
 
 
+def speech_shape(rng):
+    """Frame features, frame end times and TR times of phase 13's speech
+    extraction (float64 times, as the extractor gives them)."""
+    data = rng.normal(size=(SPEECH_FRAMES, MAIN_SHAPE["dim"])).astype(
+        np.float32)
+    dt = SPEECH_FIRST_FRAME + SPEECH_STRIDE * np.arange(SPEECH_FRAMES)
+    tt = np.arange(SPEECH_TR) * SPEECH_TR_SECONDS
+    return data, dt, tt
+
+
+def check_dead_rows(got, dt, tt, delays):
+    """Where no frame reaches a TR (the shifted Lanczos row is all zero),
+    the kernel's output block must be exactly zero; returns (zero blocks,
+    TR rows that are zero in every block)."""
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    t_tr, n_d = tt.shape[0], len(delays)
+    dead = (lf.shifted_lanczos_stack(dt, tt, delays, 3, 1.0) == 0).all(
+        dim=1).reshape(n_d, t_tr)
+    blocks = got.reshape(t_tr, n_d, -1).permute(1, 0, 2)
+    nonzero = int((blocks[dead] != 0).sum())
+    if not dead[:, 0].all() or nonzero:
+        raise AssertionError(f"{nonzero} nonzero values where no frame "
+                             "reaches the TR")
+    return int(dead.sum()), int(dead.all(dim=0).sum())
+
+
 def kernel_phase(device):
-    """Kernel vs plain version on the card; times at the main and the
-    Narratives shapes."""
+    """Kernel vs plain version on the card; times at the main, the
+    Narratives and the speech shapes."""
     import torch
 
     from litcoder_core_torch.ops import lanczos_fir as lf
@@ -516,11 +598,13 @@ def kernel_phase(device):
             cases.append((label, delays, data, dt, tt))
     narr = narratives_shape(np.random.default_rng(1))
     cases.append(("Narratives 21styear shape", NARR_DELAYS) + narr)
+    speech = speech_shape(np.random.default_rng(2))
+    cases.append(("speech shape", NARR_DELAYS) + speech)
     max_err = 0.0
     for label, delays, data_np, dt_np, tt_np in cases:
         data = torch.as_tensor(data_np, device=device)
-        dt = torch.as_tensor(dt_np, device=device)
-        tt = torch.as_tensor(tt_np, device=device)
+        dt = torch.as_tensor(dt_np, device=device, dtype=torch.float32)
+        tt = torch.as_tensor(tt_np, device=device, dtype=torch.float32)
         got = lf.lanczos_fir(data, dt, tt, delays, window=3, cutoff_mult=1.0,
                              device=device)
         ref = lf.lanczos_fir_reference(data, dt, tt, delays, 3, 1.0)
@@ -530,10 +614,19 @@ def kernel_phase(device):
                                  f"{tuple(ref.shape)}")
         err = float((got - ref).abs().max())
         live = lf.live_word_tiles(dt, tt)
-        print(f"  kernel vs plain, {label} t_w={data.shape[0]} "
-              f"d={data.shape[1]} t_tr={tt.shape[0]} delays={delays}: "
-              f"max_abs_err={err:.3e}; word tiles visited per column slab "
-              f"{int(live.sum())} of {live.numel()} dense", flush=True)
+        line = (f"  kernel vs plain, {label} t_w={data.shape[0]} "
+                f"d={data.shape[1]} t_tr={tt.shape[0]} delays={delays}: "
+                f"max_abs_err={err:.3e}; word tiles visited per column slab "
+                f"{int(live.sum())} of {live.numel()} dense")
+        if label == "speech shape":
+            blocks, rows = check_dead_rows(got, dt, tt, delays)
+            dead_tiles = int((live.sum(1) == 0).sum())
+            line += (f"; TR tiles with no frame {dead_tiles}, live tiles "
+                     f"of the first four "
+                     f"{live.sum(1)[:4].tolist()}; {blocks} (TR, delay) "
+                     f"blocks no frame reaches and {rows} TR rows exactly "
+                     f"zero")
+        print(line, flush=True)
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"by {err} > {KERNEL_ATOL}")
@@ -555,6 +648,11 @@ def kernel_phase(device):
     print("  times at the Narratives 21styear shape:", flush=True)
     record["narratives_shape"] = time_shape(device, *narr, NARR_DELAYS,
                                             NARR_TIMING_SETS)
+    print("  times at the speech shape:", flush=True)
+    data_np, dt_np, tt_np = speech
+    record["speech_shape"] = time_shape(
+        device, data_np, dt_np.astype(np.float32), tt_np.astype(np.float32),
+        NARR_DELAYS, SPEECH_TIMING_SETS)
     return record
 
 
@@ -687,18 +785,16 @@ def check_metrics(metrics, n_vox, alphas_grid, paths=EXPECTED_PATHS):
                              f"expected {paths}")
 
 
-def card_vs_cpu(label, asm, kv_path, workdir, paths, fit, full_cv=False,
-                delays=(1, 2, 3, 4)):
-    """Train on the card and on the CPU; same alphas, correlations within
-    2e-3, median r within 1e-3, the expected solver paths on both."""
+def card_vs_cpu(label, make_trainer_on, paths, fit):
+    """Train make_trainer_on(device) on the card and on the CPU; same
+    alphas, correlations within 2e-3, median r within 1e-3, the expected
+    solver paths on both."""
     from litcoder_core_torch.ops import lanczos_fir as lf
 
     results = {}
     for device in ("cuda", "cpu"):
         before = lf.launches
-        results[device] = make_trainer(
-            asm, kv_path, device, os.path.join(workdir, f"{label}_{device}"),
-            full_cv, delays).train(**fit)
+        results[device] = make_trainer_on(device).train(**fit)
         n_vox = len(results[device]["correlations"])
         check_metrics(results[device], n_vox, np.logspace(-1, 8, 10), paths)
         print(f"  {label}, {device}: median r "
@@ -718,6 +814,15 @@ def card_vs_cpu(label, asm, kv_path, workdir, paths, fit, full_cv=False,
         raise AssertionError(f"{label}: card and CPU correlations disagree")
 
 
+def embedding_trainers(asm, kv_path, workdir, label, full_cv=False,
+                       delays=(1, 2, 3, 4)):
+    """make_trainer_on(device) for card_vs_cpu: make_trainer's static-
+    embedding trainer with its results in workdir/<label>_<device>."""
+    return lambda device: make_trainer(
+        asm, kv_path, device, os.path.join(workdir, f"{label}_{device}"),
+        full_cv, delays)
+
+
 def small_parity_phase(workdir):
     """The port's trainer on small assemblies, on the card and the CPU: the
     LeBel train/test split, then the concatenated full-CV mode on its fused
@@ -725,15 +830,18 @@ def small_parity_phase(workdir):
     features, kfold_trimmed folds: the dual search)."""
     kv_path = os.path.join(workdir, "small.kv")
     asm, _ = build_assembly(1, 4, 120, 6, 40, 400, kv_path, 1.0)
-    card_vs_cpu("train/test", asm, kv_path, workdir, EXPECTED_PATHS,
-                dict(chunk_length=10, n_inner_folds=3))
+    card_vs_cpu("train/test",
+                embedding_trainers(asm, kv_path, workdir, "train/test"),
+                EXPECTED_PATHS, dict(chunk_length=10, n_inner_folds=3))
 
     kv_path = os.path.join(workdir, "small_tall.kv")
     asm, _ = build_assembly(2, 4, 120, 6, 40, 400, kv_path, 1.0,
                             lebel=False)
-    card_vs_cpu("full CV, tall chunked", asm, kv_path, workdir, FUSED_PATHS,
-                dict(chunk_length=10, n_outer_folds=3, n_inner_folds=3),
-                full_cv=True)
+    card_vs_cpu("full CV, tall chunked",
+                embedding_trainers(asm, kv_path, workdir, "full CV, tall "
+                                   "chunked", full_cv=True),
+                FUSED_PATHS,
+                dict(chunk_length=10, n_outer_folds=3, n_inner_folds=3))
 
     # 2 x 150 TRs trimmed 14:-9: 277 rows, about 177 inner train rows for
     # 48 x 8 = 384 features.
@@ -741,9 +849,11 @@ def small_parity_phase(workdir):
     asm, _ = build_assembly(3, 2, 150, 48, 40, 400, kv_path, 1.0,
                             tr_seconds=NARR_TR_SECONDS, delays=NARR_DELAYS,
                             lebel=False)
-    card_vs_cpu("full CV, wide kfold_trimmed", asm, kv_path, workdir,
-                PER_FOLD_DUAL_PATHS, dict(NARR_FIT), full_cv=True,
-                delays=NARR_DELAYS)
+    card_vs_cpu("full CV, wide kfold_trimmed",
+                embedding_trainers(asm, kv_path, workdir, "full CV, wide "
+                                   "kfold_trimmed", full_cv=True,
+                                   delays=NARR_DELAYS),
+                PER_FOLD_DUAL_PATHS, dict(NARR_FIT))
 
 
 def small_problem(seed, T=400, Tp=100, D=12, V=40):
@@ -1774,26 +1884,10 @@ def small_lm_phase(workdir):
             data_times=data_times, words=words,
             word_rates=np.bincount(split, minlength=n_tr).astype(np.float32)))
     asm = SimpleNeuroidAssembly(stories, validation_method="outer")
-    results = {}
-    for device, m in (("cuda", card_model), ("cpu", model)):
-        before = lf.launches
-        trainer, _ = lm_trainer(asm, m, device, workdir, f"small_lm_{device}",
-                                layer=1)
-        results[device] = trainer.train(chunk_length=10, n_inner_folds=3)
-        check_metrics(results[device], n_vox, np.logspace(-1, 8, 10))
-        print(f"  LM trainer, {device}: median r "
-              f"{results[device]['median_score']:.6f}, solver_paths "
-              f"{results[device]['solver_paths']}, kernel launches "
-              f"{lf.launches - before}", flush=True)
-    gpu, cpu = results["cuda"], results["cpu"]
-    dr = float(np.max(np.abs(np.asarray(gpu["correlations"])
-                             - np.asarray(cpu["correlations"]))))
-    dm = abs(gpu["median_score"] - cpu["median_score"])
-    print(f"  LM trainer, card vs CPU: same alphas "
-          f"{gpu['best_alphas'] == cpu['best_alphas']}, max |dr| {dr:.3e} "
-          f"(bar 2e-3), |d median| {dm:.3e} (bar 1e-3)", flush=True)
-    if gpu["best_alphas"] != cpu["best_alphas"] or dr > 2e-3 or dm > 1e-3:
-        raise AssertionError("LM trainer: card and CPU disagree")
+    models = {"cuda": card_model, "cpu": model}
+    card_vs_cpu("LM trainer", lambda device: lm_trainer(
+        asm, models[device], device, workdir, f"small_lm_{device}",
+        layer=1)[0], EXPECTED_PATHS, dict(chunk_length=10, n_inner_folds=3))
 
 
 def summed_stage_seconds(ex):
@@ -1911,6 +2005,344 @@ def lm_phase(asm, workdir, smi_line):
     return launches
 
 
+# Phases 4 and 13: README section 3 from AssemblyGenerator to the fit, with
+# speech features. The extractor takes cli.py's speech defaults (windows of
+# 16 s every 0.1 s, last-frame pooling, 16 kHz) and README section 4's
+# model, facebook/wav2vec2-base-960h, as Wav2Vec2Model(Wav2Vec2Config()):
+# its published width and depth (12 layers of 768, the group-norm feature
+# encoder) with random weights under torch.manual_seed(0), and
+# Wav2Vec2FeatureExtractor()'s defaults. One 21styear story of SPEECH_TR
+# TRs of 1.5 s over 360 s of seeded audio (21styear runs 3,374 s), V=20484,
+# layer 9, README section 4's wordrate extractor beside it, FIR delays 1-8
+# (D = 8 x 768 + 8), trims 14:-9 and section 3's fit (NARR_FIT).
+SPEECH_SUBJECT = "sub-256"
+SPEECH_BOLD = (f"{SPEECH_SUBJECT}_task-21styear_space-MNI152NLin2009cAsym_"
+               "res-2_desc-preproc_bold.nii.gz")
+SPEECH_SR = 16000
+SPEECH_CHUNK, SPEECH_CONTEXT, SPEECH_LAYER = 0.1, 16.0, 9
+SPEECH_MODEL_NAME = "facebook/wav2vec2-base-960h"
+# Check (a): the first SPEECH_CHECK_WINDOWS windows, card against CPU
+# within 1e-3 of the CPU's largest magnitude on every layer (fp32 with TF32
+# off for matmuls and convolutions, summed in another order over 12
+# layers); phase 4's tiny encoder: 1e-5. The host preprocessing of
+# SPEECH_PREP_WINDOWS windows is timed alone.
+SPEECH_CHECK_WINDOWS, SPEECH_PREP_WINDOWS = 4, 64
+SPEECH_CARD_CPU_RTOL, SPEECH_SMALL_RTOL = 1e-3, 1e-5
+# Phase 4's tiny encoder (2 layers of width 24, a positional convolution of
+# 12 taps in 2 groups), in each norm variant, over a data dir of 120 TRs
+# (180 s of audio), windows of 1 s every 1 s, 40 voxels.
+W2V2_TINY = dict(hidden_size=24, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=32, conv_dim=(8, 8), conv_kernel=(10, 3),
+                 conv_stride=(5, 2), num_feat_extract_layers=2,
+                 num_conv_pos_embeddings=12, num_conv_pos_embedding_groups=2)
+SMALL_SPEECH = dict(n_tr=120, n_vox=40, chunk=1.0, context=1.0, layer=1)
+
+
+class WhitespaceTokenizer:
+    """One token per whitespace-separated word (encode splits, decode
+    joins): the processors' injected tokenizer, where GPT-2's would be
+    downloaded."""
+
+    def encode(self, text, add_special_tokens=False):
+        return text.split()
+
+    def decode(self, tokens):
+        return " ".join(tokens)
+
+
+def write_narratives_dir(root, seed, n_tr, n_vox):
+    """A Narratives data dir under root, from a seed: narratives_data.pkl
+    with one 21styear story (words at about 2.5 words/s, their times and TR
+    ids, n_tr TR times of 1.5 s from 0 s), 21styear.wav (n_tr x 1.5 s of
+    16 kHz int16 audio) and sub-256/ holding an empty file with the BOLD
+    NIfTI's BIDS name. The (n_tr, n_vox) responses, a planted signal of the
+    word rate delayed by 1-8 TRs plus unit noise, go into the surface cache
+    at root/surface_cache under that subject and file. Returns the data
+    dir."""
+    import pickle
+
+    from scipy.io import wavfile
+
+    from litcoder_core_torch.brain_projection import get_surface_cache
+
+    rng = np.random.default_rng(seed)
+    data_dir = os.path.join(root, "narratives")
+    subject_dir = os.path.join(data_dir, SPEECH_SUBJECT)
+    os.makedirs(subject_dir)
+    span = n_tr * SPEECH_TR_SECONDS
+    n_words = int(span * WORDS_PER_S)
+    data_times = np.sort(rng.uniform(0, span, n_words))
+    split = np.clip((data_times // SPEECH_TR_SECONDS).astype(int), 0,
+                    n_tr - 1)
+    with open(os.path.join(data_dir, "narratives_data.pkl"), "wb") as f:
+        pickle.dump([{
+            "story_name": "21styear",
+            "words": [f"w{k}" for k in rng.integers(0, VOCAB, n_words)],
+            "data_times": data_times, "split_indices": split.tolist(),
+            "tr_times": np.arange(n_tr) * SPEECH_TR_SECONDS,
+        }], f)
+    audio = 0.1 * 32767 * rng.standard_normal(int(span * SPEECH_SR))
+    wavfile.write(os.path.join(data_dir, "21styear.wav"), SPEECH_SR,
+                  audio.astype(np.int16))
+    bold = os.path.join(subject_dir, SPEECH_BOLD)
+    open(bold, "wb").close()
+    rates = np.bincount(split, minlength=n_tr).astype(np.float64)
+    delayed = np.stack([np.concatenate([np.zeros(d), rates[:-d]])
+                        for d in NARR_DELAYS], axis=1)
+    delayed = (delayed - delayed.mean(0)) / delayed.std(0)
+    weights = (rng.standard_normal((len(NARR_DELAYS), n_vox))
+               / np.sqrt(len(NARR_DELAYS)))
+    brain = delayed @ weights + rng.standard_normal((n_tr, n_vox))
+    get_surface_cache(os.path.join(root, "surface_cache")).set(
+        SPEECH_SUBJECT, bold, brain.astype(np.float32))
+    return data_dir
+
+
+def narratives_speech_assembly(root, data_dir):
+    """README section 3's first call on the port: the responses come from
+    the surface cache seeded by write_narratives_dir."""
+    from litcoder_core_torch.assembly import AssemblyGenerator
+    from litcoder_core_torch.brain_projection import get_surface_cache
+
+    get_surface_cache(os.path.join(root, "surface_cache"))
+    return AssemblyGenerator.generate_assembly(
+        "narratives", data_dir, subject=SPEECH_SUBJECT,
+        tr=SPEECH_TR_SECONDS, lookback=256, tokenizer=WhitespaceTokenizer())
+
+
+def speech_model(config):
+    """(model on the CPU, feature extractor): Wav2Vec2Model of
+    Wav2Vec2Config(**config) initialised under torch.manual_seed(0), and
+    Wav2Vec2FeatureExtractor()."""
+    import torch
+    from transformers import (
+        Wav2Vec2Config,
+        Wav2Vec2FeatureExtractor,
+        Wav2Vec2Model,
+    )
+
+    torch.manual_seed(0)
+    return (Wav2Vec2Model(Wav2Vec2Config(**config)).eval(),
+            Wav2Vec2FeatureExtractor())
+
+
+def speech_extractor(model, fe, device, chunk, context, pool="last",
+                     layer=SPEECH_LAYER):
+    """The port's speech extractor on an injected model (moved to the card
+    unless `device` is 'cpu')."""
+    from litcoder_core_torch.features.speech_model import (
+        SpeechFeatureExtractor,
+    )
+
+    kw = {"device": "cpu"} if device == "cpu" else {}
+    return SpeechFeatureExtractor(
+        model_name=SPEECH_MODEL_NAME, chunk_size=chunk, context_size=context,
+        layer=layer, pool=pool, model=model, feature_extractor=fe, **kw)
+
+
+def speech_trainer(asm, model, fe, device, workdir, label, chunk, context,
+                   layer):
+    """(trainer, speech extractor): README section 4's wordrate and speech
+    extractors from the factory (the speech cache in
+    workdir/<label>_cache) in the Narratives trainer, full nested CV."""
+    from litcoder_core_torch import (
+        AbstractTrainer,
+        Downsampler,
+        FeatureExtractorFactory,
+        NestedCVModel,
+    )
+
+    config = {"model": model, "feature_extractor": fe, "chunk_size": chunk,
+              "context_size": context, "layer": layer, "pool": "last"}
+    if device == "cpu":
+        config["device"] = "cpu"
+    speech = FeatureExtractorFactory.create_extractor(
+        "speech", SPEECH_MODEL_NAME, config,
+        cache_dir=os.path.join(workdir, f"{label}_cache"))
+    wordrate = FeatureExtractorFactory.create_extractor("wordrate",
+                                                        "wordrate", {})
+    trainer = AbstractTrainer(
+        assembly=asm, feature_extractors=[wordrate, speech],
+        downsampler=Downsampler(), model=NestedCVModel(seed=0, device=device),
+        fir_delays=list(NARR_DELAYS), trimming_config=dict(NARR_TRIM),
+        use_train_test_split=False, layer_idx=layer, lookback=256,
+        dataset_type="narratives", logger_backend="none",
+        results_dir=os.path.join(workdir, f"{label}_results"),
+        downsample_config={"method": "lanczos", "window": 3,
+                           "cutoff_mult": 1.0},
+        device=device)
+    return trainer, speech
+
+
+def small_speech_phase(workdir):
+    """A tiny Wav2Vec2 through the port's speech extractor, card against
+    CPU, in each norm variant and pool; then the Narratives trainer with
+    wordrate and speech features on a tiny data dir, card against CPU."""
+    import copy
+
+    root = os.path.join(workdir, "small_speech")
+    os.makedirs(root)
+    cfg = SMALL_SPEECH
+    data_dir = write_narratives_dir(root, 7, cfg["n_tr"], cfg["n_vox"])
+    wav = os.path.join(data_dir, "21styear.wav")
+    for norm in ("layer", "group"):
+        model, fe = speech_model(dict(W2V2_TINY, feat_extract_norm=norm,
+                                      do_stable_layer_norm=norm == "layer"))
+        card_model = copy.deepcopy(model)
+        for pool in ("last", "mean"):
+            want, t_cpu = speech_extractor(
+                model, fe, "cpu", cfg["chunk"], cfg["context"],
+                pool).extract_all_layers(wav)
+            got, t_card = speech_extractor(
+                card_model, fe, "cuda", cfg["chunk"], cfg["context"],
+                pool).extract_all_layers(wav)
+            if not np.array_equal(t_card, t_cpu):
+                raise AssertionError("card and CPU window times differ")
+            compare_layers(f"tiny Wav2Vec2, feat_extract_norm={norm!r}, "
+                           f"pool={pool!r}, {len(t_cpu)} windows, card vs "
+                           "CPU", got, want, SPEECH_SMALL_RTOL)
+
+    # The trainer runs the last pair: group norm, wav2vec2-base's variant.
+    asm = narratives_speech_assembly(root, data_dir)
+    models = {"cuda": card_model, "cpu": model}
+    card_vs_cpu("speech Narratives trainer", lambda device: speech_trainer(
+        asm, models[device], fe, device, root, f"small_{device}",
+        cfg["chunk"], cfg["context"], cfg["layer"])[0],
+        PER_FOLD_DUAL_PATHS, NARR_FIT)
+
+
+def speech_phase(workdir, smi_line):
+    """README section 3 from AssemblyGenerator to the fit with
+    wav2vec2-base-shaped speech features on the card, at full width.
+
+    The data dir is written from a seed (write_narratives_dir). Its
+    responses are read from the surface cache, seeded here as a first run
+    of the processor would have left it: the cache-hit path of
+    NarrativesAssemblyGenerator._load_brain_data, the one a second run
+    takes, which reads no NIfTI and needs no nibabel. Checks (a) the first
+    windows card against CPU, (b) one kernel launch in train(), (c) finite
+    metrics and the JAX fit's solver_paths, (d) a second train() on the
+    same cache directory runs no forward and gives the same metrics bit for
+    bit. Returns the kernel's launches in the first train()."""
+    import copy
+
+    import torch
+    import transformers
+    from scipy.io import wavfile
+
+    from litcoder_core_torch.features.speech_model import load_audio
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    root = os.path.join(workdir, "speech")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    data_dir = write_narratives_dir(root, zlib.crc32(b"narratives-speech"),
+                                    SPEECH_TR, N_VERTICES)
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asm = narratives_speech_assembly(root, data_dir)
+    sd = asm.story_data["21styear"]
+    print(f"  data dir: {SPEECH_TR} TRs of {SPEECH_TR_SECONDS} s, "
+          f"{len(sd.words)} words, {SPEECH_TR * SPEECH_TR_SECONDS:.0f} s of "
+          f"{SPEECH_SR} Hz audio, written in {written:.1f} s; assembly "
+          f"(brain data {sd.brain_data.shape} from the surface cache, "
+          f"{len(sd.stimuli)} fullcontext stimuli) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    model, fe = speech_model({})
+    card_model = copy.deepcopy(model).to("cuda")
+    cfg = model.config
+    print(f"  model: transformers {transformers.__version__} "
+          f"Wav2Vec2Model(Wav2Vec2Config()): {cfg.num_hidden_layers} layers "
+          f"of {cfg.hidden_size}, feat_extract_norm "
+          f"{cfg.feat_extract_norm!r}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, random "
+          "init under torch.manual_seed(0)", flush=True)
+
+    # (a) the first windows, card against CPU.
+    audio = load_audio(sd.audio_path, SPEECH_SR)
+    first = os.path.join(root, "first_windows.wav")
+    n = (int(SPEECH_CONTEXT * SPEECH_SR)
+         + (SPEECH_CHECK_WINDOWS - 1) * int(SPEECH_CHUNK * SPEECH_SR))
+    wavfile.write(first, SPEECH_SR, audio[:n])
+    t0 = time.perf_counter()
+    want, t_cpu = speech_extractor(model, fe, "cpu", SPEECH_CHUNK,
+                                   SPEECH_CONTEXT).extract_all_layers(first)
+    cpu_s = time.perf_counter() - t0
+    card_ex = speech_extractor(card_model, fe, "cuda", SPEECH_CHUNK,
+                               SPEECH_CONTEXT)
+    got, t_card = card_ex.extract_all_layers(first)
+    if len(t_cpu) != SPEECH_CHECK_WINDOWS or not np.array_equal(t_card,
+                                                                t_cpu):
+        raise AssertionError(f"(a) window times {t_card} vs {t_cpu}")
+    compare_layers(f"(a) first {SPEECH_CHECK_WINDOWS} windows, card vs CPU "
+                   f"(CPU {cpu_s:.1f} s)", got, want, SPEECH_CARD_CPU_RTOL)
+    del model
+
+    windows, _ = card_ex._windows(audio)
+    t0 = time.perf_counter()
+    for lo in range(0, SPEECH_PREP_WINDOWS, card_ex.batch_size):
+        card_ex._prepare_batch(windows[lo:lo + card_ex.batch_size])
+    prep_s = time.perf_counter() - t0
+    print(f"  host preprocessing alone: {SPEECH_PREP_WINDOWS} windows in "
+          f"{prep_s:.4f} s (batches of {card_ex.batch_size}; "
+          f"{prep_s / SPEECH_PREP_WINDOWS * windows.shape[0]:.2f} s for all "
+          f"{windows.shape[0]} windows)", flush=True)
+
+    runs = []
+    for run in (1, 2):
+        trainer, ex = speech_trainer(asm, card_model, fe, "cuda", root,
+                                     "speech", SPEECH_CHUNK, SPEECH_CONTEXT,
+                                     SPEECH_LAYER)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lf.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.train(**NARR_FIT)
+        wall = time.perf_counter() - t0
+        launches = lf.launches
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(ex.counts)
+        runs.append((metrics, launches, counts))
+        print(f"  train() {run}: lanczos_fir launches {launches}; extractor "
+              f"counts {json.dumps(counts)}", flush=True)
+        if counts["windows"]:
+            st = ex.last_stage_seconds
+            print(f"  extraction: {counts['windows']} windows of "
+                  f"{SPEECH_CONTEXT:.0f} s in {counts['forwards']} forwards;"
+                  f" last_stage_seconds "
+                  f"{json.dumps({k: round(v, 4) for k, v in st.items()})}; "
+                  f"{counts['windows'] / st['forward_total_s']:.1f} windows/s"
+                  f", {len(audio) / SPEECH_SR / st['forward_total_s']:.2f} "
+                  "audio seconds per wall second", flush=True)
+        check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10),
+                      PER_FOLD_DUAL_PATHS)
+        # No floor: the speech features are random-init; the word-rate
+        # signal sits in 8 of 6,152 columns.
+        report_path_run(metrics, wall, peak, smi_line, None)
+    (m1, launches, counts1), (m2, launches2, counts2) = runs
+    if launches != 1:
+        raise AssertionError(f"(b) the kernel ran {launches} times, not 1")
+    if counts1["windows"] != SPEECH_FRAMES:
+        raise AssertionError(f"{counts1['windows']} windows, not "
+                             f"{SPEECH_FRAMES}")
+    if counts2["windows"] or counts2["forwards"]:
+        raise AssertionError(f"(d) the second train() ran forwards: "
+                             f"{counts2}")
+    dr = float(np.max(np.abs(np.asarray(m1["correlations"])
+                             - np.asarray(m2["correlations"]))))
+    same = (m1["best_alphas"] == m2["best_alphas"]
+            and m1["correlations"] == m2["correlations"]
+            and m1["median_score"] == m2["median_score"])
+    print(f"  (b) launches {launches}; (c) solver_paths {m1['solver_paths']};"
+          f" (d) second train(): {launches2} launches, 0 forwards, identical "
+          f"alphas, correlations and median r {same} (max |dr| {dr:.3e})",
+          flush=True)
+    if not same:
+        raise AssertionError("(d) the cached run's metrics differ")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1945,6 +2377,7 @@ def main() -> int:
         step_cases_phase()
         small_downsample_phase()
         small_lm_phase(workdir)
+        small_speech_phase(workdir)
 
         phase("5 main path at full size")
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
@@ -1971,6 +2404,9 @@ def main() -> int:
 
         phase("12 language-model trainer at full width")
         record["launches_lm"] = lm_phase(asm, workdir, smi_line)
+
+        phase("13 README section 3 with speech features at full width")
+        record["launches_speech"] = speech_phase(workdir, smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

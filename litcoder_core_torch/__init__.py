@@ -5,16 +5,20 @@ NVIDIA card: the fused Lanczos+FIR step is a hand-written CUDA kernel
 (csrc/lanczos_fir.cu), the rest plain torch ops. Entry points run on the
 card by default and raise without one; pass device='cpu' for the CPU.
 
-Ported so far: AbstractTrainer with wordrate, static-embedding and
-language-model features (the LM extractor runs a torch model on the card,
-with the JAX package's activation caches) and its TensorBoard, W&B or null
-logger with the brain plots, all ten Downsampler methods with FIR delays
-(Lanczos fused or two-stage, the others two-stage), both structuring modes,
-fit_nested_cv with every argument of the JAX fit but mesh/n_devices (every
-alpha-search path, voxel chunking, fast_scan, permutation significance),
-the fused step parallel.nested_cv_step, and load_assembly/save_assembly.
-ROADMAP.md lists the rest. Optional packages (transformers, tensorboard,
-matplotlib, seaborn, wandb, nilearn) are imported only where they are used.
+Ported so far: the dataset processors (assembly.AssemblyGenerator for
+LeBel, Narratives and LPP, with brain projection and the surface cache),
+AbstractTrainer with wordrate, static-embedding, language-model and speech
+features (the LM and speech extractors run torch models on the card, with
+the JAX package's activation caches; speech comes as (features, times))
+and its TensorBoard, W&B or null logger with the brain plots, all ten
+Downsampler methods with FIR delays (Lanczos fused or two-stage, the others
+two-stage), both structuring modes, fit_nested_cv with every argument of
+the JAX fit but mesh/n_devices (every alpha-search path, voxel chunking,
+fast_scan, permutation significance), the fused step
+parallel.nested_cv_step, and load_assembly/save_assembly. ROADMAP.md lists
+the rest. Optional packages (transformers, tensorboard, matplotlib,
+seaborn, wandb, nibabel, nilearn, soundfile) are imported only where they
+are used; pandas is not needed.
 """
 
 __version__ = "0.1.0"

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from litcoder_core_torch.features.base import BaseFeatureExtractor
-from litcoder_core_torch.utils.device import matmul_tf32, resolve_device
+from litcoder_core_torch.utils.device import matmul_conv_tf32, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -251,7 +251,7 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         return t
 
     def _hidden_states(self, ids: torch.Tensor, mask: torch.Tensor):
-        with torch.inference_mode(), matmul_tf32(False):
+        with torch.inference_mode(), matmul_conv_tf32(False):
             out = self._compute_model(input_ids=ids, attention_mask=mask,
                                       output_hidden_states=True)
         return out.hidden_states
@@ -262,7 +262,7 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         device."""
         ids, mask = self._to_device(ids_np), self._to_device(mask_np)
         hidden = self._hidden_states(ids, mask)
-        with torch.inference_mode(), matmul_tf32(False):
+        with torch.inference_mode(), matmul_conv_tf32(False):
             if self.last_token:
                 idx = torch.clamp(mask.sum(dim=-1) - 1, min=0)
                 rows = torch.arange(ids.shape[0], device=self.device)

@@ -9,15 +9,16 @@ are the means over the outer folds). Tensors live on `device` from the
 fused Lanczos+FIR kernel through structuring and into the fit; the only
 host copies are the explicit ones for metrics and saving.
 
-Features come from any registered extractor, the language-model one
-included: its numpy (n_words, d_model) layer goes into the fused kernel or
-the Downsampler like static embeddings. Logging follows the JAX trainer:
-TensorBoard by default, W&B or a NullLogger on request, and after the fit
-the correlation histograms (and, at fsaverage5 resolution, surface maps)
-through BrainPlotter on the host.
+Features come from any registered extractor: the language-model one's
+numpy (n_words, d_model) layer goes into the fused kernel or the
+Downsampler like static embeddings, on the story's word times; the speech
+extractor's (features, times) tuple goes in on its window end times
+instead. Logging follows the JAX trainer: TensorBoard by default, W&B or a
+NullLogger on request, and after the fit the correlation histograms (and,
+at fsaverage5 resolution, surface maps) through BrainPlotter on the host.
 
-Not ported yet (ROADMAP.md): per-space (banded) features, speech
-(features, times) tuples, and the response prefetch.
+Not ported yet (ROADMAP.md): per-space (banded) features and the response
+prefetch.
 """
 
 import logging
@@ -138,16 +139,25 @@ class AbstractTrainer:
             self.lookback, self.dataset_type,
         )
 
+    def _with_times(self, features, idx: int):
+        """(features, the times they are sampled at): a speech extractor's
+        (features, times) tuple, else the story's word times."""
+        if isinstance(features, tuple):
+            return features
+        return features, self.assembly.get_data_times()[idx]
+
     def _should_downsample(self, extractor) -> bool:
         """Wordrate features are already TR-binned; every other extractor
-        (embeddings, language model) gives one row per word."""
+        gives one row per word (embeddings, language model) or per speech
+        window."""
         return "wordrate" not in extractor.__class__.__name__.lower()
 
     def extract_and_downsample_features(self) -> Dict[str, torch.Tensor]:
         """Per-story extraction + downsampling (two-stage path), with any
         Downsampler method: downsample_config names it ('rect' when it does
-        not) and its parameters; the story's word times, TR times and
-        split indices always go along, as in the JAX trainer."""
+        not) and its parameters; the story's word times (a speech tuple's
+        own times), TR times and split indices always go along, as in the
+        JAX trainer."""
         all_features = {}
         for story in self.stories_to_process:
             idx = self.assembly.stories.index(story)
@@ -155,9 +165,10 @@ class AbstractTrainer:
             for extractor in self.feature_extractors:
                 features = self._extract_single_features(extractor, story, idx)
                 if self._should_downsample(extractor):
+                    features, data_times = self._with_times(features, idx)
                     features = self.downsampler.downsample(
                         data=features,
-                        data_times=self.assembly.get_data_times()[idx],
+                        data_times=data_times,
                         tr_times=self.assembly.get_tr_times()[idx],
                         split_indices=self.assembly.get_split_indices()[idx],
                         device=self.device,
@@ -217,10 +228,11 @@ class AbstractTrainer:
             for extractor in self.feature_extractors:
                 features = self._extract_single_features(extractor, story, idx)
                 if self._should_downsample(extractor):
+                    data, data_times = self._with_times(features, idx)
                     block = lanczos_fir(
-                        features, self.assembly.get_data_times()[idx],
-                        tr_times, delays=delays, window=window,
-                        cutoff_mult=cutoff_mult, device=self.device,
+                        data, data_times, tr_times, delays=delays,
+                        window=window, cutoff_mult=cutoff_mult,
+                        device=self.device,
                     )
                 else:
                     block = FIR.make_delayed(as_f32(features, self.device),

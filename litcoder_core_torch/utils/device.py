@@ -12,6 +12,15 @@ import torch
 
 
 @contextlib.contextmanager
+def _fp32_precision(flags, enabled: bool):
+    saved = flags.fp32_precision
+    flags.fp32_precision = "tf32" if enabled else "ieee"
+    try:
+        yield
+    finally:
+        flags.fp32_precision = saved
+
+
 def matmul_tf32(enabled: bool):
     """Scope the CUDA float32 matmul precision: TF32 tensor-core products
     when `enabled`, full fp32 (IEEE) otherwise; the caller's setting is
@@ -19,13 +28,18 @@ def matmul_tf32(enabled: bool):
 
     Uses torch's per-backend `fp32_precision` flag (torch >= 2.9); reading
     the legacy `allow_tf32` after a caller set the new one raises."""
-    flags = torch.backends.cuda.matmul
-    saved = flags.fp32_precision
-    flags.fp32_precision = "tf32" if enabled else "ieee"
-    try:
+    return _fp32_precision(torch.backends.cuda.matmul, enabled)
+
+
+@contextlib.contextmanager
+def matmul_conv_tf32(enabled: bool):
+    """matmul_tf32 that also scopes cuDNN convolutions, which torch lets
+    run in TF32 by default (`torch.backends.cudnn.conv.fp32_precision`):
+    the extractors' forwards, whose speech encoders open with
+    convolutions."""
+    with matmul_tf32(enabled), _fp32_precision(torch.backends.cudnn.conv,
+                                               enabled):
         yield
-    finally:
-        flags.fp32_precision = saved
 
 
 def resolve_device(device) -> torch.device:

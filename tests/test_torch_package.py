@@ -1,9 +1,10 @@
 """Import hygiene and device rules of litcoder_core_torch.
 
-The port imports torch and never jax or litcoder_core_tpu (importing any
-submodule of the JAX package runs its __init__, which pulls in jax), and
-its entry points run on the card unless the caller asks for the CPU: with
-no card they raise instead of falling back."""
+The port imports torch and never jax, flax, pandas or litcoder_core_tpu
+(importing any submodule of the JAX package runs its __init__, which pulls
+in jax; the card's machine has no pandas), and its entry points run on the
+card unless the caller asks for the CPU: with no card they raise instead
+of falling back."""
 
 import ast
 import os
@@ -28,6 +29,7 @@ from litcoder_core_torch import (
 from litcoder_core_torch.features.language_model import (
     LanguageModelFeatureExtractor,
 )
+from litcoder_core_torch.features.speech_model import SpeechFeatureExtractor
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
 from litcoder_core_torch.parallel import nested_cv_step
 from litcoder_core_torch.utils.testing import HashStubTokenizer
@@ -55,15 +57,19 @@ def test_every_module_imports_without_jax():
     for name in ("parallel.step", "ops.segment",
                  "assembly.assembly_loader", "features.language_model",
                  "features.convert", "features.custom", "utils.caches",
-                 "utils.testing", "utils.core", "plotting.plotting_utils"):
+                 "utils.testing", "utils.core", "plotting.plotting_utils",
+                 "features.speech_model", "assembly.base_processor",
+                 "assembly.lebel_processor", "assembly.narratives_processor",
+                 "assembly.lpp_processor", "assembly.assembly_generator",
+                 "brain_projection.project", "brain_projection.simple_cache"):
         assert f"litcoder_core_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('litcoder_core_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'pandas', 'litcoder_core_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -74,18 +80,22 @@ def test_every_module_imports_without_jax():
 
 
 def test_optional_packages_stay_unimported():
-    """The card's machine may lack transformers, tensorboard, matplotlib or
-    wandb: importing the package and the LM extractor must not import
+    """The card's machine may lack transformers, tensorboard, matplotlib,
+    wandb, pandas, nibabel, nilearn or soundfile: importing the package,
+    the extractors, the processors and brain projection must not import
     them."""
     code = (
         "import sys\n"
         "import litcoder_core_torch\n"
         "import litcoder_core_torch.features.language_model\n"
+        "import litcoder_core_torch.features.speech_model\n"
+        "import litcoder_core_torch.assembly\n"
+        "import litcoder_core_torch.brain_projection\n"
         "import litcoder_core_torch.utils\n"
         "import litcoder_core_torch.plotting\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('transformers', 'tensorboard', 'matplotlib', 'wandb', "
-        "'seaborn', 'nilearn'))\n"
+        "'seaborn', 'nilearn', 'nibabel', 'pandas', 'soundfile'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -107,7 +117,8 @@ def test_no_jax_import_in_source(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "litcoder_core_tpu"), \
+            assert root not in ("jax", "jaxlib", "flax", "pandas",
+                                "litcoder_core_tpu"), \
                 f"{path.name}:{node.lineno} imports {name}"
 
 
@@ -150,6 +161,15 @@ def _entry_points(tmp_path):
             LanguageModelFeatureExtractor({
                 "model_name": "m", "model": torch.nn.Linear(2, 2),
                 "tokenizer": HashStubTokenizer()})),
+        "SpeechFeatureExtractor": lambda: SpeechFeatureExtractor(
+            model_name="m", chunk_size=0.1, context_size=1.0,
+            model=torch.nn.Linear(2, 2), feature_extractor=object()),
+        "FeatureExtractorFactory speech": lambda: (
+            litcoder_core_torch.FeatureExtractorFactory.create_extractor(
+                "speech", "m", {"chunk_size": 0.1, "context_size": 1.0,
+                                "model": torch.nn.Linear(2, 2),
+                                "feature_extractor": object()},
+                cache_dir=str(tmp_path))),
         "nested_cv_step": lambda: nested_cv_step(
             np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
             [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
@@ -165,6 +185,8 @@ def _entry_points(tmp_path):
                                   "Downsampler.downsample",
                                   "Downsampler.downsample (default method)",
                                   "LanguageModelFeatureExtractor",
+                                  "SpeechFeatureExtractor",
+                                  "FeatureExtractorFactory speech",
                                   "nested_cv_step"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.

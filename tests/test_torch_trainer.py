@@ -4,7 +4,7 @@ tests/test_trainer_e2e.py cut to the LeBel layout (brain data of n_TR - 15
 rows, the trimming of examples/train_simple.py), with wordrate, static
 embeddings and a tiny GPT-2 as features (the JAX extractor on its Flax
 model, the port's on the torch twin with the same weights). Also the state
-carried between the packages: assemblies, .kv bundles and saved runs; and
+carried between the packages: assemblies, .kv bundles and saved runs;
 the loggers: both trainers record the same names, by default in a
 TensorBoard run under results_dir/runs/."""
 
@@ -232,10 +232,14 @@ def test_unported_trainer_options_raise(jax_assembly, kv_path, tmp_path):
                                      np.arange(2.0), method="average",
                                      split_indices=[0, 0, 1], device="cpu")
     assert tuple(out.shape) == (2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.FeatureExtractorFactory.create_extractor("speech", "m", {})
-    assert T.FeatureExtractorFactory.get_supported_modalities() == [
-        "language_model", "wordrate", "embeddings"]
+    # A speech mesh waits for ROADMAP A15; speech itself is ported.
+    with pytest.raises(NotImplementedError, match="A15"):
+        T.FeatureExtractorFactory.create_extractor(
+            "speech", "m", {"chunk_size": 0.1, "context_size": 16.0,
+                            "mesh": object()})
+    assert (T.FeatureExtractorFactory.get_supported_modalities()
+            == J.FeatureExtractorFactory.get_supported_modalities()
+            == ["language_model", "speech", "wordrate", "embeddings"])
 
 
 # ---- loggers -----------------------------------------------------------
@@ -417,3 +421,137 @@ def test_embedding_oov_policies_match_jax(kv_path, oov):
                                   ref.extract_features(tokens))
     np.testing.assert_array_equal(port.extract_features("W1 w2, x w3"),
                                   ref.extract_features("W1 w2, x w3"))
+
+
+# ---- speech (features, times) tuples through both trainers ---------------
+
+SPEECH_TRS, SPEECH_SR = 120, 4000
+SPEECH_CONFIG = dict(chunk_size=1.0, context_size=1.0,
+                     target_sample_rate=SPEECH_SR, layer=1, pool="last",
+                     batch_size=32)
+
+
+@pytest.fixture(scope="module")
+def speech_runs(tmp_path_factory):
+    """({mode: (JAX metrics, port metrics)}, port extractor, stories) for a
+    tiny Wav2Vec2 of width 16 (group norm, random init under
+    torch.manual_seed(0)): the JAX extractor's backend='torch' path and the
+    port's extractor on the same module, over three stories of 240 s of
+    seeded 4 kHz audio, windows of 1 s every 1 s. The responses (12
+    voxels) carry a signal of the JAX extractor's layer-1 features,
+    Lanczos-downsampled and delayed. 'fused' is the train/test split
+    through the fused Lanczos+FIR stage, 'two_stage' the full-CV
+    concatenation through the Downsampler, served from each package's
+    speech cache. The shapes are those of lm_runs, whose JAX programs are
+    then already compiled."""
+    from scipy.io import wavfile
+    from transformers import (
+        Wav2Vec2Config,
+        Wav2Vec2FeatureExtractor,
+        Wav2Vec2Model,
+    )
+
+    from litcoder_core_torch.ops.lanczos_fir import lanczos_fir_reference
+    from tests.test_torch_speech import SMALL, OneStory
+
+    torch.manual_seed(0)
+    model = Wav2Vec2Model(Wav2Vec2Config(
+        **dict(SMALL, hidden_size=16), num_conv_pos_embeddings=12,
+        do_stable_layer_norm=False, feat_extract_norm="group")).eval()
+    config = dict(SPEECH_CONFIG, model=model,
+                  feature_extractor=Wav2Vec2FeatureExtractor(
+                      sampling_rate=SPEECH_SR))
+    out = tmp_path_factory.mktemp("speech")
+    extractors = {
+        J: J.FeatureExtractorFactory.create_extractor(
+            "speech", "tiny-w2v2", dict(config, backend="torch"),
+            cache_dir=str(out / "jax_cache")),
+        T: T.FeatureExtractorFactory.create_extractor(
+            "speech", "tiny-w2v2", dict(config, device="cpu"),
+            cache_dir=str(out / "torch_cache")),
+    }
+    rng = np.random.default_rng(17)
+    mix = rng.standard_normal((4 * 16, 12)).astype(np.float32) / 8
+    stories = []
+    for i in range(LM_STORIES):
+        sd = _make_story(f"speech{i}", n_trs=SPEECH_TRS)
+        path = str(out / f"{sd.name}.wav")
+        n = int(SPEECH_TRS * 2.0 * SPEECH_SR)
+        wavfile.write(path, SPEECH_SR,
+                      (0.1 * rng.standard_normal(n)).astype(np.float32))
+        feats, times = J.FeatureExtractorFactory._extract_speech_features(
+            extractors[J], OneStory(path), sd.name, 0, 1, "lebel")
+        low = lanczos_fir_reference(
+            torch.as_tensor(feats), torch.as_tensor(times, dtype=torch.float32),
+            torch.as_tensor(sd.tr_times, dtype=torch.float32)).numpy()
+        signal = (low - low.mean(0)) / low.std(0).clip(1e-6) @ mix
+        brain = signal + rng.standard_normal(signal.shape).astype(np.float32)
+        stories.append(dataclasses.replace(
+            sd, brain_data=brain.astype(np.float32), audio_path=path))
+    lebel = [dataclasses.replace(sd, brain_data=sd.brain_data[10:-5])
+             for sd in stories]
+    modes = {
+        "fused": (lebel, dict(LEBEL_TRIM), True, True, FIT),
+        "two_stage": (stories, {"features_start": 3, "features_end": -2,
+                                "targets_start": 3, "targets_end": -2},
+                      False, False,
+                      dict(chunk_length=10, n_outer_folds=3,
+                           n_inner_folds=3)),
+    }
+    results = {}
+    for mode, (story_data, trim, split, fused, fit) in modes.items():
+        jasm = J.SimpleNeuroidAssembly(story_data, validation_method="outer")
+        got = {}
+        for pkg, asm in ((J, jasm), (T, assembly_from_reference(jasm))):
+            trainer = _trainer(pkg, asm, None, out / f"{mode}_{pkg.__name__}",
+                               feature_extractors=[extractors[pkg]],
+                               trimming_config=trim,
+                               use_train_test_split=split,
+                               fused_downsample_fir=fused, layer_idx=1)
+            assert trainer._fused_eligible() == fused
+            got[pkg] = trainer.train(**fit)
+        results[mode] = got[J], got[T]
+    return results, extractors[T], stories
+
+
+@pytest.mark.parametrize("mode", ["fused", "two_stage"])
+def test_speech_trainer_matches_jax(speech_runs, mode):
+    mj, mt = speech_runs[0][mode]
+    np.testing.assert_array_equal(np.asarray(mt["best_alphas"]),
+                                  np.asarray(mj["best_alphas"]))
+    np.testing.assert_allclose(mt["correlations"], mj["correlations"],
+                               atol=2e-3)
+    assert abs(mt["median_score"] - mj["median_score"]) <= 1e-3
+    assert mt["solver_paths"] == mj["solver_paths"]
+    assert set(mt) == set(mj)
+    stage = ("extract_downsample_fir_fused" if mode == "fused"
+             else "extract_and_downsample")
+    assert stage in mt["trainer_stage_seconds"]
+    assert mt["median_score"] > 0.3  # the planted speech signal is found
+
+
+def test_speech_trainer_extracts_once_and_caches(speech_runs):
+    """Each story's windows run once through the port's encoder; the
+    two-stage mode is served from its speech cache."""
+    _, ex, stories = speech_runs
+    n_windows = int(SPEECH_TRS * 2.0 - 1.0) + 1
+    assert ex.counts["windows"] == LM_STORIES * n_windows
+    assert len(list(Path(ex.cache_dir).glob("*.npz"))) == LM_STORIES
+
+
+def test_speech_fused_matches_two_stage_in_the_port(speech_runs, tmp_path):
+    """The fused kernel's input is the tuple's window times: the same
+    delayed features as Downsampler('lanczos') then FIR."""
+    _, ex, stories = speech_runs
+    jasm = J.SimpleNeuroidAssembly(stories, validation_method="outer")
+    asm = assembly_from_reference(jasm)
+    fused = _trainer(T, asm, None, tmp_path, feature_extractors=[ex],
+                     fused_downsample_fir=True, layer_idx=1)
+    two = _trainer(T, asm, None, tmp_path, feature_extractors=[ex],
+                   fused_downsample_fir=False, layer_idx=1)
+    want = two.apply_fir_delays(two.extract_and_downsample_features())
+    got = fused.extract_and_delay_features_fused()
+    for story in want:
+        assert tuple(got[story].shape) == (SPEECH_TRS, 4 * 16)
+        np.testing.assert_allclose(got[story].numpy(), want[story].numpy(),
+                                   atol=1e-5)
