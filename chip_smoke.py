@@ -56,7 +56,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
      over 180 s of audio, every layer card against CPU within 1e-5 of the
      CPU's largest magnitude, and phase 13's Narratives trainer on that
      tiny data dir (120 TRs, 40 voxels) on both, with the same alphas and
-     the parity bars above.
+     the parity bars above. Then fit_banded_ridge on small seeded problems
+     (T=240, bands of 24 and 16, V=23 or 80; a wide one; a square one with
+     T_tr = D for method='dual') through every scan route: chol on both
+     sides of its solve association, chunked chol with a tail chunk on a
+     response on the device, host-streamed, dual, forced dual, eigh,
+     svd_fallback, fast_scan True and 'auto', and permutation significance
+     (equal p-values); fit_stacked_ridge on its grouped-Cholesky and
+     spectral refits and its chunked route; variance_partitioning with 2
+     spaces. The same alphas, gammas and solver_paths, correlations within
+     1e-5, stack weights within 1e-4, variance components within 1e-4.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
@@ -151,12 +160,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
      windows/s, audio seconds per wall second, the host preprocessing of
      64 windows timed alone, both runs' stage split, peak memory and
      median r.
-Phases 5, 6, 12 and 13 set the kernel's launch count to 0 just before they
-run and read it just after; phases 7-10 call the fit or the step directly
-and print each fit's wall, median r, route and peak device memory. The
-last two lines are a JSON record of the kernel (launches on the main path,
-on the Narratives, LM and speech paths; times at the Narratives and the
-speech shapes) and {"ok": true, "device": {...}}.
+ 14. README section 4's --banded fit at full width, on phase 5's assembly
+     with the word rate and the embeddings as two feature spaces
+     (AbstractTrainer(concat_features=False), delays 1-4, D = 4 + 3,072,
+     LeBel trims, 10 alphas, 5 inner folds of 20-row chunks): (a)
+     BandedRidgeModel(n_gammas=10): 85 kernel launches, finite metrics,
+     best_gammas of shape (V, 2), the JAX fit's routes (chol scan,
+     grouped_chol refit), median r above MEDIAN_R_FLOOR; (b)
+     StackedRidgeModel: 85 launches, stack weights on the simplex (non-
+     negative, rows summing to 1 within 1e-5), the blend's median r beside
+     each space's; (c) variance_partitioning of (a)'s structured spaces:
+     finite, r2_AB - unique_A - unique_B - shared within 1e-6 of 0; (d)
+     fit_banded_ridge at benchmarks/banded_scan.py's surface problem,
+     uncut (T=26,880, bands 3,072 + 2,048 + 4, V=20,484, 2,048 test rows,
+     drawn on the card), 5 gammas, once with Y on the card and once with Y
+     as host numpy streamed in voxel chunks of 8,192: the same (gamma,
+     alpha) on at least 99.9% of the voxels, correlations within 1e-4
+     where they agree. Each fit prints its wall, stage split, peak memory,
+     median r and route.
+Phases 5, 6, 12, 13 and 14 (a)-(b) set the kernel's launch count to 0 just
+before they run and read it just after; phases 7-10 call the fit or the
+step directly and print each fit's wall, median r, route and peak device
+memory. The last two lines are a JSON record of the kernel (launches on the
+main path, on the Narratives, LM, speech and banded paths; times at the
+Narratives and the speech shapes) and {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
 """
@@ -213,12 +240,15 @@ SPEECH_TR, SPEECH_TR_SECONDS = 240, 1.5
 # L2, SPEECH_TIMING_SETS of 16.5 MB at the speech shape), each launched
 # TIMING_ROUNDS times per timed run. A spin kernel of
 # HOLD_CYCLES clock cycles holds the stream while the host enqueues, so the
-# host's launch overhead does not enter the device time.
+# host's launch overhead does not enter the device time. A run in which the
+# host outran the hold (a busy shared host) is run again with the hold
+# doubled, up to MAX_HOLD_DOUBLINGS times, and is never kept.
 TIMING_SETS = 12
 NARR_TIMING_SETS = 3
 SPEECH_TIMING_SETS = 6
 TIMING_ROUNDS = 10
 HOLD_CYCLES = 20_000_000
+MAX_HOLD_DOUBLINGS = 4
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 # float32 outside the tensor cores (the kernel's FMAs).
@@ -358,6 +388,80 @@ DOWNSAMPLE_KWARGS = {
 # the floor stays far above chance.
 AVERAGE_MEDIAN_R_FLOOR = 0.35
 
+# Phase 4's banded, stacking and variance-partitioning cases: the problems
+# of tests/test_torch_banded*.py, test_torch_stacking.py and
+# test_torch_variance_partition.py. Banded: T=240 rows in 4 chunked folds of
+# 10-row chunks (Tva=60), 40 test rows, bands of 24 and 16 with V=23 (the
+# scan solves against s X^T Y) or V=80 (against Xva^T); 'wide' has bands of
+# 100 and 80 on 120 rows (the dual scan); 'square' bands of 100 and 80 on
+# 240 rows, T_tr = D = 180 (method='dual' on a tall design, whose kernels
+# are full-rank only there: ROADMAP.md C). Card against CPU: the same
+# alphas, gammas and solver_paths, correlations within 1e-5; stack weights
+# within 1e-4 (1,500 FISTA steps on A and b that differ in the last
+# bits); variance components, sums of up to three signed squares of such
+# correlations, within 1e-4.
+BANDED_FIT = dict(alphas=np.logspace(-1, 5, 6), n_gammas=4, n_inner_folds=4,
+                  chunk_length=10, seed=0)
+BANDED_ATOL, STACK_W_ATOL, VP_ATOL = 1e-5, 1e-4, 1e-4
+
+
+def _banded_paths(scan, refit):
+    return {"banded_scan": scan, "banded_refit": refit}
+
+
+CHOL_BANDED = _banded_paths("chol", "grouped_chol")
+BANDED_CASES = [
+    # (label, problem, response on the device, fit arguments, solver_paths)
+    ("chol, V < Tva", "tall", True, {}, CHOL_BANDED),
+    ("chol, V >= Tva", "tall80", True, {}, CHOL_BANDED),
+    ("chunked chol, chunks of 7 (a tail of 2)", "tall", True,
+     dict(voxel_chunk_size=7), CHOL_BANDED),
+    ("host-streamed, chunks of 7", "tall", False, dict(voxel_chunk_size=7),
+     CHOL_BANDED),
+    ("dual, wide", "wide", True, {}, _banded_paths("dual", "spectral")),
+    ("method='dual', T_tr = D", "square", True, dict(method="dual"),
+     _banded_paths("dual", "spectral")),
+    ("method='eigh'", "tall", True, dict(method="eigh"),
+     _banded_paths("eigh", "spectral")),
+    ("method='svd'", "tall", True, dict(method="svd"),
+     _banded_paths("svd_fallback", "spectral")),
+    ("fast_scan=True", "tall", True, dict(fast_scan=True), CHOL_BANDED),
+    ("fast_scan='auto'", "tall", True, dict(fast_scan="auto"), CHOL_BANDED),
+    ("permutation", "tall", True,
+     dict(significance="permutation", n_permutations=500), CHOL_BANDED),
+]
+STACK_FIT = dict(alphas=np.logspace(-1, 4, 6), n_inner_folds=3,
+                 chunk_length=10, seed=0)
+STACK_CASES = [
+    # (label, fit arguments, oof_refit)
+    ("grouped Cholesky", {}, "grouped_chol"),
+    ("spectral", dict(method="eigh"), "spectral"),
+    ("chunked, chunks of 7", dict(voxel_chunk_size=7),
+     "grouped_chol_chunked"),
+]
+
+# Phase 14: README section 4's --banded fit on phase 5's assembly (word
+# rate and 768-wide embeddings as two spaces, D = 4 + 3,072), 10 gammas,
+# 10 alphas, 5 inner folds of 20-row chunks. The planted signal and its
+# ceiling are phase 5's, so MEDIAN_R_FLOOR and its reason hold.
+BANDED_N_GAMMAS = 10
+STACKED_PATHS = {"fast_scan": "off", "alpha_search": "chol",
+                 "oof_refit": "grouped_chol_chunked"}
+STACK_SIMPLEX_ATOL, VP_IDENTITY_ATOL = 1e-5, 1e-6
+# Phase 14 (d): benchmarks/banded_scan.py's surface problem, uncut: bands of
+# 3,072 (GPT-2 768 x 4 delays), 2,048 and 4 columns, T=26,880 training and
+# 2,048 test rows, V=20,484, Y = (sum_b X_b W_b) M + unit noise with W_b
+# (D_b, 128) / sqrt(D_b) and M (128, V) / 12, 10 alphas, 5 inner folds of
+# 20-row chunks, return_weights=False; 5 gammas. Each voxel's signal
+# variance is about 3 x 128 / 144 = 2.7, its r ceiling about 0.85; ridge
+# from 21,504 training rows of 5,124 features recovers most of it, so the
+# floor sits well under the ceiling and far above chance (about +-0.04 per
+# voxel for 2,048 test rows). The device-resident fit and the host-streamed
+# one (voxel chunks of 8,192) must pick the same (gamma, alpha) on at least
+# 99.9% of the voxels, with correlations within 1e-4 where they do.
+BSCAN_T, BSCAN_TP, BSCAN_BANDS, BSCAN_RANK = 26880, 2048, (3072, 2048, 4), 128
+BSCAN_GAMMAS, BSCAN_CHUNK, BSCAN_MEDIAN_R_FLOOR = 5, 8192, 0.5
+
 
 def phase(name):
     print(f"[phase] {name}", flush=True)
@@ -427,9 +531,11 @@ def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
     """Device ms per launch: rounds x len(launchers) launches back to back
     between one pair of CUDA events, cycling over `launchers` (each with
     its own operands), divided by their number; the median of `repeats`
-    such runs. Raises if the host took longer to enqueue them than the
-    spin kernel held the stream, since the device would then have waited
-    on the host."""
+    such runs. Only runs in which the host enqueued every launch before
+    the spin kernel released the stream are kept, so the device never
+    waited on the host: a run that missed is discarded and repeated with
+    the hold doubled, and the function raises once the hold has been
+    doubled MAX_HOLD_DOUBLINGS times and the host still outran it."""
     import torch
 
     for fn in launchers:
@@ -438,11 +544,12 @@ def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     n = rounds * len(launchers)
+    hold_cycles, doublings = HOLD_CYCLES, 0
     times = []
-    for _ in range(repeats):
+    while len(times) < repeats:
         torch.cuda.synchronize()
         hold.record()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold_cycles)
         start.record()
         t0 = time.perf_counter()
         for _ in range(rounds):
@@ -453,8 +560,15 @@ def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
         end.synchronize()
         hold_ms = hold.elapsed_time(start)
         if host_ms >= hold_ms:
-            raise AssertionError(f"enqueueing {n} launches took {host_ms:.2f}"
-                                 f" ms, longer than the {hold_ms:.2f} ms hold")
+            if doublings == MAX_HOLD_DOUBLINGS:
+                raise AssertionError(
+                    f"enqueueing {n} launches took {host_ms:.2f} ms, longer "
+                    f"than the {hold_ms:.2f} ms hold of {hold_cycles} cycles")
+            print(f"  enqueueing {n} launches took {host_ms:.2f} ms, longer "
+                  f"than the {hold_ms:.2f} ms hold: run discarded, hold "
+                  f"doubled to {2 * hold_cycles} cycles")
+            hold_cycles, doublings = 2 * hold_cycles, doublings + 1
+            continue
         times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
 
@@ -2343,6 +2457,361 @@ def speech_phase(workdir, smi_line):
     return launches
 
 
+# Phases 4 and 14: banded ridge, stacking and variance partitioning.
+
+
+def banded_problem(seed, T=240, dims=(24, 16), V=23, TP=40):
+    """Seeded (Xs, Y, X_tests, y_test), numpy: Y = X1 W1 + 0.3 X2 W2 + 0.5
+    noise (tests/test_torch_banded.py's generator)."""
+    rng = np.random.default_rng(seed)
+    ws = [rng.normal(size=(d, V)).astype(np.float32) / np.sqrt(d)
+          for d in dims]
+    scale = [1.0] + [0.3] * (len(dims) - 1)
+
+    def draw(n):
+        Xs = [rng.normal(size=(n, d)).astype(np.float32) for d in dims]
+        Y = sum(c * X @ w for c, X, w in zip(scale, Xs, ws))
+        return Xs, (Y + 0.5 * rng.normal(size=(n, V))).astype(np.float32)
+
+    Xs, Y = draw(T)
+    Xts, Yt = draw(TP)
+    return Xs, Y, Xts, Yt
+
+
+def two_space_problem(seed, T=300, Tp=80, dims=(20, 24), V=30):
+    """Seeded two-space problem of tests/test_torch_stacking.py: the first
+    space carries most of the signal."""
+    rng = np.random.default_rng(seed)
+    ws = [rng.normal(size=(d, V)).astype(np.float32) for d in dims]
+
+    def draw(n):
+        Xs = [rng.normal(size=(n, d)).astype(np.float32) for d in dims]
+        Y = Xs[0] @ ws[0] + 0.5 * Xs[1] @ ws[1]
+        return Xs, (Y + 3.0 * rng.normal(size=(n, V))).astype(np.float32)
+
+    Xs, Y = draw(T)
+    Xts, Yt = draw(Tp)
+    return Xs, Y, Xts, Yt
+
+
+def max_gap(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+def banded_cases_phase():
+    """fit_banded_ridge on the card and on the CPU through every scan route,
+    fit_stacked_ridge on both refit routes, chunked and not, and
+    variance_partitioning with 2 spaces."""
+    import torch
+
+    from litcoder_core_torch.models import (
+        fit_banded_ridge,
+        fit_stacked_ridge,
+        variance_partitioning,
+    )
+
+    problems = {"tall": banded_problem(17),
+                "tall80": banded_problem(18, V=80),
+                "wide": banded_problem(21, T=120, dims=(100, 80)),
+                "square": banded_problem(23, dims=(100, 80))}
+    for label, name, on_device, kw, paths in BANDED_CASES:
+        Xs, Y, Xts, Yt = problems[name]
+        got = {}
+        for device in ("cuda", "cpu"):
+            Y_in = torch.as_tensor(Y, device=device) if on_device else Y
+            got[device] = fit_banded_ridge(Xs, Y_in, Xts, Yt, device=device,
+                                           **BANDED_FIT, **kw)
+            if got[device][0]["solver_paths"] != paths:
+                raise AssertionError(
+                    f"banded {label}, {device}: solver_paths "
+                    f"{got[device][0]['solver_paths']}, expected {paths}")
+        (mg, wg, ag, gg), (mc, wc, ac, gc) = got["cuda"], got["cpu"]
+        same = bool(np.array_equal(ag, ac) and np.array_equal(gg, gc))
+        dr = max_gap(mg["correlations"], mc["correlations"])
+        dw = max_gap(wg, wc) / float(np.max(np.abs(wc)))
+        line = (f"  banded {label}: {paths['banded_scan']}/"
+                f"{paths['banded_refit']} on both, same alphas and gammas "
+                f"{same}, max |dr| {dr:.3e} (bar {BANDED_ATOL}), max |dw| / "
+                f"max |w| {dw:.3e}, stages {sorted(mg['stage_seconds'])}")
+        if "significance" in kw:
+            same_p = mg["p_values"] == mc["p_values"]
+            line += f", identical permutation p-values {same_p}"
+            if not same_p:
+                raise AssertionError("banded permutation p-values differ")
+        print(line, flush=True)
+        if not same or dr > BANDED_ATOL:
+            raise AssertionError(f"banded {label}: card and CPU disagree")
+
+    problem = two_space_problem(3)
+    for label, kw, oof in STACK_CASES:
+        got = {device: fit_stacked_ridge(*problem, device=device,
+                                         **STACK_FIT, **kw)
+               for device in ("cuda", "cpu")}
+        (mg, wg, ag), (mc, wc, ac) = got["cuda"], got["cpu"]
+        for device, (m, _, _) in got.items():
+            if m["solver_paths"]["oof_refit"] != oof:
+                raise AssertionError(f"stacking {label}, {device}: "
+                                     f"{m['solver_paths']}")
+        dr = max_gap(mg["correlations"], mc["correlations"])
+        dw = max_gap(wg, wc)
+        print(f"  stacking {label}: {mg['solver_paths']} on both, same "
+              f"alphas {bool(np.array_equal(ag, ac))}, max |dr| {dr:.3e} "
+              f"(bar {BANDED_ATOL}), max |d stack weight| {dw:.3e} (bar "
+              f"{STACK_W_ATOL})", flush=True)
+        if (not np.array_equal(ag, ac) or dr > BANDED_ATOL
+                or dw > STACK_W_ATOL or mg["solver_paths"]
+                != mc["solver_paths"]):
+            raise AssertionError(f"stacking {label}: card and CPU disagree")
+
+    Xs, Y, Xts, Yt = problem
+    got = {device: variance_partitioning(Xs, Y, Xts, Yt, device=device,
+                                         **STACK_FIT)
+           for device in ("cuda", "cpu")}
+    gpu, cpu = got["cuda"], got["cpu"]
+    gap = max(max_gap(gpu[k], cpu[k]) for k in cpu)
+    print(f"  variance_partitioning, 2 spaces: keys {sorted(gpu)}, max "
+          f"|d component| {gap:.3e} (bar {VP_ATOL})", flush=True)
+    if sorted(gpu) != sorted(cpu) or gap > VP_ATOL:
+        raise AssertionError("variance partitioning: card and CPU disagree")
+
+
+class Recorded:
+    """A model whose fit_predict keeps its arguments and its result (the
+    trainer returns only the metrics)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.args = self.kwargs = self.out = None
+
+    def fit_predict(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+        self.out = self.model.fit_predict(*args, **kwargs)
+        return self.out
+
+
+def spaces_trainer(asm, kv_path, model, results_dir):
+    """README section 4's --banded trainer on the card: the word rate and
+    the static embeddings as two feature spaces (concat_features=False),
+    the fused Lanczos+FIR stage with delays 1-4, LeBel trimming."""
+    from litcoder_core_torch import (
+        AbstractTrainer,
+        Downsampler,
+        FeatureExtractorFactory,
+    )
+
+    return AbstractTrainer(
+        assembly=asm,
+        feature_extractors=[
+            FeatureExtractorFactory.create_extractor("wordrate", "wordrate",
+                                                     {}),
+            FeatureExtractorFactory.create_extractor(
+                "embeddings", "random-static",
+                {"vector_path": kv_path, "lowercase": False}),
+        ],
+        downsampler=Downsampler(), model=model, fir_delays=[1, 2, 3, 4],
+        trimming_config=dict(LEBEL_TRIM), use_train_test_split=True,
+        dataset_type="lebel", logger_backend="none", results_dir=results_dir,
+        downsample_config={"method": "lanczos", "window": 3,
+                           "cutoff_mult": 1.0},
+        concat_features=False, device="cuda")
+
+
+def check_spaces_metrics(label, metrics, n_vox, paths):
+    """Finite correlations and p-values of the right shape, alphas from
+    the grid, the expected solver_paths."""
+    corr = np.asarray(metrics["correlations"])
+    p = np.asarray(metrics["p_values"])
+    if corr.shape != (n_vox,) or not np.all(np.isfinite(corr)):
+        raise AssertionError(f"{label}: correlations {corr.shape}")
+    if not (np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))):
+        raise AssertionError(f"{label}: p-values not finite in [0, 1]")
+    grid = np.logspace(-1, 8, 10).astype(np.float32)
+    if not np.all(np.isin(np.asarray(metrics["best_alphas"], np.float32),
+                          grid)):
+        raise AssertionError(f"{label}: alphas outside the grid")
+    if metrics["solver_paths"] != paths:
+        raise AssertionError(f"{label}: solver_paths "
+                             f"{metrics['solver_paths']}, expected {paths}")
+
+
+def spaces_trainer_run(label, asm, kv_path, model, workdir, smi_line, paths):
+    """train() of spaces_trainer on the card: kernel launches, the model's
+    stage split and the trainer's, peak memory, median r (above
+    MEDIAN_R_FLOOR), the expected route. Returns (metrics, launches,
+    the recorded model)."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    rec = Recorded(model)
+    trainer = spaces_trainer(asm, kv_path, rec,
+                             os.path.join(workdir, f"{label}_results"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train(chunk_length=20, n_inner_folds=5)
+    wall = time.perf_counter() - t0
+    launches = lf.launches
+    peak = torch.cuda.max_memory_allocated()
+    check_spaces_metrics(label, metrics, N_VERTICES, paths)
+    print(f"  ({label}) lanczos_fir launches {launches}; the model's "
+          f"stage_seconds {json.dumps(metrics['stage_seconds'])}", flush=True)
+    report_path_run(metrics, wall, peak, smi_line, MEDIAN_R_FLOOR)
+    if launches != N_STORIES:
+        raise AssertionError(f"({label}) the kernel ran {launches} times, not "
+                             f"{N_STORIES}")
+    return metrics, launches, rec
+
+
+def banded_scan_problem(seed):
+    """phase 14 (d)'s problem, drawn on the card from a seed: (Xs, Y,
+    X_tests, y_test) as card tensors."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    Xs = [randn(BSCAN_T, d) for d in BSCAN_BANDS]
+    Xts = [randn(BSCAN_TP, d) for d in BSCAN_BANDS]
+    ws = [randn(d, BSCAN_RANK) / d ** 0.5 for d in BSCAN_BANDS]
+    mix = randn(BSCAN_RANK, N_VERTICES) / 12.0
+    Y = sum(X @ w for X, w in zip(Xs, ws)) @ mix
+    Y += randn(BSCAN_T, N_VERTICES)
+    Yt = sum(X @ w for X, w in zip(Xts, ws)) @ mix
+    Yt += randn(BSCAN_TP, N_VERTICES)
+    return Xs, Y, Xts, Yt
+
+
+def timed_banded(label, smi_line, Xs, Y, Xts, Yt, **kw):
+    """fit_banded_ridge on the card at phase 14 (d)'s arguments: wall
+    (synchronized), stage split, peak memory (data included), median r,
+    route."""
+    import torch
+
+    from litcoder_core_torch.models import fit_banded_ridge
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m, w, alphas, gammas = fit_banded_ridge(
+        Xs, Y, Xts, Yt, alphas=np.logspace(-1, 8, 10), n_gammas=BSCAN_GAMMAS,
+        n_inner_folds=5, chunk_length=FUSED_CHUNK, seed=0,
+        return_weights=False, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if w is not None:
+        raise AssertionError("return_weights=False returned weights")
+    check_spaces_metrics(label, m, N_VERTICES, CHOL_BANDED)
+    print(f"  {label}: fit wall {wall:.3f} s, stage_seconds "
+          f"{json.dumps(m['stage_seconds'])}, median r "
+          f"{m['median_score']:.6f} (floor {BSCAN_MEDIAN_R_FLOOR}), "
+          f"n_significant {m['n_significant']}, solver_paths "
+          f"{m['solver_paths']}, max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB), card: {smi_line}", flush=True)
+    if not m["median_score"] > BSCAN_MEDIAN_R_FLOOR:
+        raise AssertionError(f"{label}: median r {m['median_score']}")
+    return m, alphas, gammas
+
+
+def banded_phase(asm, kv_path, workdir, smi_line):
+    """README section 4's --banded fit at full width: (a) the banded
+    trainer, (b) the stacked one, (c) variance partitioning of (a)'s
+    spaces, (d) fit_banded_ridge at benchmarks/banded_scan.py's surface
+    problem, device-resident and host-streamed. Returns (a)'s launches
+    ((b) must launch as many)."""
+    import torch
+
+    from litcoder_core_torch.models import (
+        BandedRidgeModel,
+        StackedRidgeModel,
+        variance_partitioning,
+    )
+
+    # (a) banded ridge through the trainer.
+    m_a, launches, rec_a = spaces_trainer_run(
+        "a", asm, kv_path,
+        BandedRidgeModel(seed=0, n_gammas=BANDED_N_GAMMAS, device="cuda"),
+        workdir, smi_line, CHOL_BANDED)
+    gammas = rec_a.out[3]
+    if gammas.shape != (N_VERTICES, 2) or np.asarray(
+            m_a["best_gammas"]).shape != (N_VERTICES, 2):
+        raise AssertionError(f"(a) best_gammas {gammas.shape}")
+    widths = [X.shape[1] for X in rec_a.args[0]]
+    print(f"  (a) spaces {widths} (D = {sum(widths)}), {len(rec_a.args[1])} "
+          f"training rows; median gamma of the embeddings "
+          f"{float(np.median(gammas[:, 1])):.4f}", flush=True)
+
+    # (b) stacked regression through the same trainer.
+    m_b, _, rec_b = spaces_trainer_run(
+        "b", asm, kv_path, StackedRidgeModel(seed=0, device="cuda"), workdir,
+        smi_line, STACKED_PATHS)
+    w = rec_b.out[1]
+    row_gap = float(np.max(np.abs(w.sum(axis=1) - 1.0)))
+    print(f"  (b) stack weights {w.shape}: min {float(w.min()):.3e}, max "
+          f"|row sum - 1| {row_gap:.3e} (bar {STACK_SIMPLEX_ATOL}); blend "
+          f"median r {m_b['median_score']:.6f}, each space alone "
+          f"{[round(float(np.median(r)), 6) for r in m_b['per_space_test_r']]}"
+          f", stack_weights_mean {m_b['stack_weights_mean']}", flush=True)
+    if w.shape != (N_VERTICES, 2) or w.min() < 0 \
+            or row_gap > STACK_SIMPLEX_ATOL:
+        raise AssertionError("(b) stack weights off the simplex")
+    del rec_b
+
+    # (c) variance partitioning of (a)'s structured spaces.
+    Xs, Y = rec_a.args
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vp = variance_partitioning(Xs, Y, rec_a.kwargs["X_tests"],
+                               rec_a.kwargs["y_test"], device="cuda",
+                               chunk_length=20, n_inner_folds=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ident = float(np.max(np.abs(vp["r2_AB"] - vp["unique_A"]
+                                - vp["unique_B"] - vp["shared"])))
+    finite = all(np.all(np.isfinite(v)) and v.shape == (N_VERTICES,)
+                 for v in vp.values())
+    print(f"  (c) variance_partitioning (A word rate, B embeddings): "
+          f"{wall:.3f} s for 3 fits; medians "
+          f"{ {k: round(float(np.median(v)), 6) for k, v in vp.items()} }; "
+          f"max |r2_AB - unique_A - unique_B - shared| {ident:.3e} (bar "
+          f"{VP_IDENTITY_ATOL}); all finite {finite}", flush=True)
+    if not finite or ident > VP_IDENTITY_ATOL:
+        raise AssertionError("(c) variance partitioning")
+    del rec_a, Xs, Y, vp
+
+    # (d) benchmarks/banded_scan.py's surface problem, two ways.
+    Xs, Y, Xts, Yt = banded_scan_problem(5)
+    print(f"  (d) T={BSCAN_T}, bands {list(BSCAN_BANDS)}, V={N_VERTICES}, "
+          f"{BSCAN_TP} test rows, n_gammas {BSCAN_GAMMAS}", flush=True)
+    m1, a1, g1 = timed_banded("(d) response on the card, no voxel chunks",
+                              smi_line, Xs, Y, Xts, Yt)
+    Y_host = Y.cpu().numpy()
+    del Y
+    m2, a2, g2 = timed_banded(
+        f"(d) host response streamed, voxel chunks of {BSCAN_CHUNK}",
+        smi_line, Xs, Y_host, Xts, Yt, voxel_chunk_size=BSCAN_CHUNK)
+    if "xty_stream" not in m2["stage_seconds"]:
+        raise AssertionError("(d) the host response did not stream")
+    same = (a1 == a2) & np.all(g1 == g2, axis=1)
+    gap = np.abs(np.asarray(m1["correlations"])
+                 - np.asarray(m2["correlations"]))
+    dr = float(np.max(gap[same], initial=0.0))
+    print(f"  (d) same (gamma, alpha) on {int(same.sum())} of {same.size} "
+          f"voxels ({same.mean():.4%}), max |dr| {dr:.3e} where they agree",
+          flush=True)
+    if same.mean() < 0.999 or dr > 1e-4:
+        raise AssertionError("(d) device-resident and host-streamed fits "
+                             "disagree")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2378,6 +2847,7 @@ def main() -> int:
         small_downsample_phase()
         small_lm_phase(workdir)
         small_speech_phase(workdir)
+        banded_cases_phase()
 
         phase("5 main path at full size")
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
@@ -2407,6 +2877,10 @@ def main() -> int:
 
         phase("13 README section 3 with speech features at full width")
         record["launches_speech"] = speech_phase(workdir, smi_line)
+
+        phase("14 README section 4's --banded fit at full width")
+        record["launches_banded"] = banded_phase(asm, kv_path, workdir,
+                                                 smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

@@ -14,9 +14,11 @@ and its TensorBoard, W&B or null logger with the brain plots, all ten
 Downsampler methods with FIR delays (Lanczos fused or two-stage, the others
 two-stage), both structuring modes, fit_nested_cv with every argument of
 the JAX fit but mesh/n_devices (every alpha-search path, voxel chunking,
-fast_scan, permutation significance), the fused step
-parallel.nested_cv_step, and load_assembly/save_assembly. ROADMAP.md lists
-the rest. Optional packages (transformers, tensorboard, matplotlib,
+fast_scan, permutation significance), banded ridge, stacked regression and
+variance partitioning over feature spaces (models.fit_banded_ridge,
+models.fit_stacked_ridge, models.variance_partitioning, fed by the
+trainer's concat_features=False), the fused step parallel.nested_cv_step,
+and load_assembly/save_assembly. ROADMAP.md lists the rest. Optional packages (transformers, tensorboard, matplotlib,
 seaborn, wandb, nibabel, nilearn, soundfile) are imported only where they
 are used; pandas is not needed.
 """

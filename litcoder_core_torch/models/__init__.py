@@ -1,7 +1,12 @@
 """Encoding models of the port: nested-CV ridge (train/test and full-CV
-modes, every alpha-search path), the reference-API ridge wrappers and the
-train-statistics normalizer."""
+modes, every alpha-search path), banded ridge, stacked regression and
+variance partitioning over feature spaces, the reference-API ridge
+wrappers and the train-statistics normalizer."""
 
+from litcoder_core_torch.models.banded import (
+    BandedRidgeModel,
+    fit_banded_ridge,
+)
 from litcoder_core_torch.models.base import BasePredictivityModel
 from litcoder_core_torch.models.folding import create_folds
 from litcoder_core_torch.models.nested_cv import NestedCVModel, fit_nested_cv
@@ -12,7 +17,16 @@ from litcoder_core_torch.models.ridge import (
     ridge_fit,
     svd_masked,
 )
+from litcoder_core_torch.models.stacking import (
+    StackedRidgeModel,
+    fit_stacked_ridge,
+)
+from litcoder_core_torch.models.variance_partition import (
+    variance_partitioning,
+)
 
-__all__ = ["BasePredictivityModel", "DataNormalizer", "NestedCVModel",
-           "create_folds", "fit_nested_cv", "ridge_corr", "ridge_corr_pred",
-           "ridge_fit", "svd_masked"]
+__all__ = ["BandedRidgeModel", "BasePredictivityModel", "DataNormalizer",
+           "NestedCVModel", "StackedRidgeModel", "create_folds",
+           "fit_banded_ridge", "fit_nested_cv", "fit_stacked_ridge",
+           "ridge_corr", "ridge_corr_pred", "ridge_fit", "svd_masked",
+           "variance_partitioning"]

@@ -80,7 +80,7 @@ Metrics = Dict[str, Union[float, List[float], List[bool]]]
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to litcoder_core_torch yet (see ROADMAP.md, "
-        "queue A)"
+        "queue A, A15)"
     )
 
 

@@ -17,8 +17,17 @@ instead. Logging follows the JAX trainer: TensorBoard by default, W&B or a
 NullLogger on request, and after the fit the correlation histograms (and,
 at fsaverage5 resolution, surface maps) through BrainPlotter on the host.
 
-Not ported yet (ROADMAP.md): per-space (banded) features and the response
-prefetch.
+concat_features=False keeps each extractor's delayed block as its own
+feature space (the two-stage path cuts them to the common story length;
+the fused path launches the kernel once per downsampled space and does not
+interleave them), structures each space on its own, and hands the list of
+spaces to a multi-space model (BandedRidgeModel, StackedRidgeModel) in
+train/test mode. Before extraction, the stories' responses are copied to
+the card on a side stream from pinned memory when they total at most
+4 GiB (the JAX trainer's budget), so the copy overlaps extraction.
+
+Not ported yet (ROADMAP.md): the CLI that builds the trainer (A14) and
+mesh-sharded extraction (A15).
 """
 
 import logging
@@ -70,21 +79,29 @@ class AbstractTrainer:
         run_name: Optional[str] = None,
         downsample_config: Optional[Dict] = None,
         story_selection: Optional[List[str]] = None,
+        concat_features: bool = True,
         fused_downsample_fir: Any = "auto",
         device_resident: Any = "auto",
         device="cuda",
     ):
-        """fused_downsample_fir: 'auto' runs Lanczos downsampling and FIR
+        """concat_features=True hstacks the extractors' features (one
+        feature space); False keeps one space per extractor for the
+        multi-space models (BandedRidgeModel, StackedRidgeModel), train/test
+        mode only.
+
+        fused_downsample_fir: 'auto' runs Lanczos downsampling and FIR
         delays as one fused kernel (ops.lanczos_fir) whenever that equals
         the two-stage path (method 'lanczos' without rectify, all delays
         positive); False keeps the two-stage path; True requires the fused
         one. `device` is where every stage runs ('cuda' by default; with no
         card it raises). `device_resident` is accepted for the JAX
-        signature: the port's stages always keep their tensors on
-        `device`."""
+        signature and dropped: the port's stages always keep their tensors
+        on `device`, and the response prefetch follows the JAX trainer's
+        budget rule (_prefetch_brain_data), not this flag."""
         del device_resident
         self.device = resolve_device(device)
         self.assembly = assembly
+        self.concat_features = concat_features
         self.fused_downsample_fir = fused_downsample_fir
         self.feature_extractors = feature_extractors
         self.downsampler = downsampler
@@ -110,6 +127,7 @@ class AbstractTrainer:
                           run_name)
         self.model_saver = ModelSaver(base_dir=results_dir)
         self.brain_plotter = BrainPlotter(self.experiment_logger)
+        self._brain_prefetch = None
 
     def setup_logger(self, backend: str, project_name: str, results_dir: str,
                      run_name: Optional[str]):
@@ -152,7 +170,7 @@ class AbstractTrainer:
         window."""
         return "wordrate" not in extractor.__class__.__name__.lower()
 
-    def extract_and_downsample_features(self) -> Dict[str, torch.Tensor]:
+    def extract_and_downsample_features(self) -> Dict:
         """Per-story extraction + downsampling (two-stage path), with any
         Downsampler method: downsample_config names it ('rect' when it does
         not) and its parameters; the story's word times (a speech tuple's
@@ -176,10 +194,16 @@ class AbstractTrainer:
                     )
                 story_features.append(as_f32(features, self.device))
             min_len = min(f.shape[0] for f in story_features)
-            all_features[story] = torch.cat(
-                [f[:min_len] for f in story_features], dim=1)
-            logger.info("Story %s: feature shape %s", story,
-                        tuple(all_features[story].shape))
+            story_features = [f[:min_len] for f in story_features]
+            if self.concat_features:
+                all_features[story] = torch.cat(story_features, dim=1)
+                logger.info("Story %s: feature shape %s", story,
+                            tuple(all_features[story].shape))
+            else:
+                all_features[story] = story_features  # list of spaces
+                logger.info("Story %s: %d feature spaces %s", story,
+                            len(story_features),
+                            [tuple(f.shape) for f in story_features])
         return all_features
 
     # ------------------------------------------------- fused stages 1+2
@@ -209,12 +233,13 @@ class AbstractTrainer:
             )
         return eligible
 
-    def extract_and_delay_features_fused(self) -> Dict[str, torch.Tensor]:
+    def extract_and_delay_features_fused(self) -> Dict:
         """Stages 1+2 with one kernel launch per story and downsampled
         extractor. Equal to extract_and_downsample_features() followed by
-        apply_fir_delays(): blocks are cut to the common story length and
-        re-interleaved by delay, so the column order is that of
-        FIR.make_delayed(hstack(spaces))."""
+        apply_fir_delays(): blocks are cut to the common story length and,
+        with concat_features, re-interleaved by delay, so the column order
+        is that of FIR.make_delayed(hstack(spaces)); without it each block
+        stays its own space."""
         delays = [int(d) for d in self.fir_delays]
         n_delays = len(delays)
         window = self.downsample_config["window"]
@@ -241,12 +266,18 @@ class AbstractTrainer:
             # With strictly positive delays make_delayed(f[:m]) equals
             # make_delayed(f)[:m], so aligning after the FIR is exact.
             min_len = min(b.shape[0] for b in spaces)
+            spaces = [b[:min_len] for b in spaces]
+            if not self.concat_features:
+                all_delayed[story] = spaces
+                logger.info("Story %s (fused): %d feature spaces %s", story,
+                            len(spaces), [tuple(b.shape) for b in spaces])
+                continue
             if len(spaces) == 1:
-                combined = spaces[0][:min_len]
+                combined = spaces[0]
             else:
                 combined = torch.cat(
-                    [b[:min_len].reshape(min_len, n_delays, -1)
-                     for b in spaces], dim=2,
+                    [b.reshape(min_len, n_delays, -1) for b in spaces],
+                    dim=2,
                 ).reshape(min_len, -1)
             all_delayed[story] = combined
             logger.info("Story %s (fused): delayed shape %s", story,
@@ -255,29 +286,74 @@ class AbstractTrainer:
 
     # ------------------------------------------------------------ stage 2
 
-    def apply_fir_delays(
-        self, features: Dict[str, torch.Tensor]
-    ) -> Dict[str, torch.Tensor]:
-        return {story: FIR.make_delayed(feat, self.fir_delays)
+    def apply_fir_delays(self, features: Dict) -> Dict:
+        """FIR delays per story; a list of spaces (per-space mode) is
+        delayed space by space."""
+        return {story: ([FIR.make_delayed(f, self.fir_delays) for f in feat]
+                        if isinstance(feat, list)
+                        else FIR.make_delayed(feat, self.fir_delays))
                 for story, feat in features.items()}
 
     # ------------------------------------------------------------ stage 3
 
-    def structure_data(self, features: Dict[str, torch.Tensor]
-                       ) -> Dict[str, torch.Tensor]:
-        brain_data = {
-            story: as_f32(self.assembly.get_brain_data()[
-                self.assembly.stories.index(story)], self.device)
+    def _prefetch_brain_data(self, budget_bytes: int = 4 << 30):
+        """Start the stories' response copies to `device` before
+        extraction, so they ride the link while the extraction stage runs.
+        On a card: pinned host copies, non-blocking, on a side stream whose
+        completion event structure_data waits on. Budget-gated as in the
+        JAX trainer: above `budget_bytes` of responses the copies stay in
+        structure_data. Returns (tensors by story, event or None) or
+        None."""
+        arrs = {
+            story: self.assembly.get_brain_data()[
+                self.assembly.stories.index(story)]
             for story in self.stories_to_process
         }
+        total = sum(int(np.asarray(a).nbytes) for a in arrs.values())
+        if total > budget_bytes:
+            logger.info(
+                "brain-data prefetch skipped: %.1f GB exceeds the %.1f GB "
+                "device budget (transfers stay in structure_data)",
+                total / 2**30, budget_bytes / 2**30)
+            return None
+        if self.device.type != "cuda":
+            return {s: as_f32(a, self.device) for s, a in arrs.items()}, None
+        stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(stream):
+            copies = {
+                s: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                .pin_memory().to(self.device, non_blocking=True)
+                for s, a in arrs.items()
+            }
+        event = torch.cuda.Event()
+        event.record(stream)
+        return copies, event
+
+    def structure_data(self, features: Dict) -> Dict:
+        if self._brain_prefetch is not None:
+            brain_data, event = self._brain_prefetch
+            if event is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for t in brain_data.values():
+                    # Allocated on the side stream, used on this one.
+                    t.record_stream(consumer)
+        else:
+            brain_data = {
+                story: as_f32(self.assembly.get_brain_data()[
+                    self.assembly.stories.index(story)], self.device)
+                for story in self.stories_to_process
+            }
+        self._brain_prefetch = None
         if self.use_train_test_split:
             return self._create_train_test_split(features, brain_data)
         return self._create_concatenated_data(features, brain_data)
 
     def _create_train_test_split(self, features: Dict, brain_data: Dict
-                                 ) -> Dict[str, torch.Tensor]:
+                                 ) -> Dict:
         """LeBel style: the last story is held out; per-story z-score, trim,
-        then vstack."""
+        then vstack. In per-space mode each feature space is structured on
+        its own and Rstim/Pstim are lists of spaces."""
         stories = list(features.keys())
         train_stories, test_stories = stories[:-1], stories[-1:]
         cfg = self.trimming_config
@@ -289,27 +365,50 @@ class AbstractTrainer:
                 for s in story_list
             ])
 
-        X_train = torch.nan_to_num(stack(features, train_stories,
-                                         "train_features_start",
-                                         "train_features_end"))
+        def stack_features(source, story_list, lo_key, hi_key):
+            return torch.nan_to_num(stack(source, story_list, lo_key,
+                                          hi_key))
+
+        if isinstance(features[stories[0]], list):
+            spaces = [{s: f[b] for s, f in features.items()}
+                      for b in range(len(features[stories[0]]))]
+            X_train = [stack_features(sp, train_stories,
+                                      "train_features_start",
+                                      "train_features_end") for sp in spaces]
+            X_test = [stack_features(sp, test_stories,
+                                     "test_features_start",
+                                     "test_features_end") for sp in spaces]
+        else:
+            X_train = stack_features(features, train_stories,
+                                     "train_features_start",
+                                     "train_features_end")
+            X_test = stack_features(features, test_stories,
+                                    "test_features_start",
+                                    "test_features_end")
         Y_train = stack(brain_data, train_stories, "train_targets_start",
                         "train_targets_end")
-        X_test = torch.nan_to_num(stack(features, test_stories,
-                                        "test_features_start",
-                                        "test_features_end"))
         Y_test = stack(brain_data, test_stories, "test_targets_start",
                        "test_targets_end")
-        logger.info("Train: X%s Y%s | Test: X%s Y%s", tuple(X_train.shape),
-                    tuple(Y_train.shape), tuple(X_test.shape),
-                    tuple(Y_test.shape))
+
+        def shape(x):
+            return ([tuple(t.shape) for t in x] if isinstance(x, list)
+                    else tuple(x.shape))
+
+        logger.info("Train: X%s Y%s | Test: X%s Y%s", shape(X_train),
+                    shape(Y_train), shape(X_test), shape(Y_test))
         return {"Rstim": X_train, "Rresp": Y_train,
                 "Pstim": X_test, "Presp": Y_test}
 
     def _create_concatenated_data(self, features: Dict, brain_data: Dict
-                                  ) -> Dict[str, torch.Tensor]:
+                                  ) -> Dict:
         """LPP/Narratives style: concatenate in story order, trim globally;
         train() then fits in full nested-CV mode (no test set)."""
         cfg = self.trimming_config
+        if not self.concat_features:
+            raise ValueError(
+                "Banded (concat_features=False) training requires "
+                "use_train_test_split=True"
+            )
         X = torch.vstack([features[s] for s in self.stories_to_process])
         Y = torch.vstack([brain_data[s] for s in self.stories_to_process])
         X = X[cfg.get("features_start", 0):cfg.get("features_end", None)]
@@ -323,6 +422,7 @@ class AbstractTrainer:
         """Run the complete pipeline with per-stage wall-clock accounting;
         on a card each stage ends in a synchronize, so the split is real."""
         timer = StageTimer(sync_fn=synchronizer(self.device))
+        self._brain_prefetch = self._prefetch_brain_data()
         if self._fused_eligible():
             with timer.stage("extract_downsample_fir_fused"):
                 delayed = self.extract_and_delay_features_fused()
@@ -335,8 +435,17 @@ class AbstractTrainer:
             data = self.structure_data(delayed)
 
         logger.info("Starting model training...")
+        banded = "Rstim" in data and isinstance(data["Rstim"], list)
         with timer.stage("fit_predict"):
-            if "Rstim" in data:
+            if banded:
+                # Multi-space model API (banded or stacked), train/test
+                # mode: banded returns (..., best_gammas), stacked 3.
+                out = self.model.fit_predict(
+                    data["Rstim"], data["Rresp"], X_tests=data["Pstim"],
+                    y_test=data["Presp"], **model_kwargs,
+                )
+                metrics, weights, best_alphas = out[:3]
+            elif "Rstim" in data:
                 metrics, weights, best_alphas = self.model.fit_predict(
                     features=data["Rstim"], targets=data["Rresp"],
                     X_test=data["Pstim"], y_test=data["Presp"],

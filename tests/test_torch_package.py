@@ -30,6 +30,13 @@ from litcoder_core_torch.features.language_model import (
     LanguageModelFeatureExtractor,
 )
 from litcoder_core_torch.features.speech_model import SpeechFeatureExtractor
+from litcoder_core_torch.models import (
+    BandedRidgeModel,
+    StackedRidgeModel,
+    fit_banded_ridge,
+    fit_stacked_ridge,
+    variance_partitioning,
+)
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
 from litcoder_core_torch.parallel import nested_cv_step
 from litcoder_core_torch.utils.testing import HashStubTokenizer
@@ -61,7 +68,9 @@ def test_every_module_imports_without_jax():
                  "features.speech_model", "assembly.base_processor",
                  "assembly.lebel_processor", "assembly.narratives_processor",
                  "assembly.lpp_processor", "assembly.assembly_generator",
-                 "brain_projection.project", "brain_projection.simple_cache"):
+                 "brain_projection.project", "brain_projection.simple_cache",
+                 "models.banded", "models.stacking",
+                 "models.variance_partition"):
         assert f"litcoder_core_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -170,6 +179,16 @@ def _entry_points(tmp_path):
                                 "model": torch.nn.Linear(2, 2),
                                 "feature_extractor": object()},
                 cache_dir=str(tmp_path))),
+        "fit_banded_ridge": lambda: fit_banded_ridge(
+            [X, X], Y, [X, X], Y, chunk_length=4, n_inner_folds=2),
+        "BandedRidgeModel.fit_predict": lambda: BandedRidgeModel(
+        ).fit_predict([X, X], Y, chunk_length=4, n_inner_folds=2),
+        "fit_stacked_ridge": lambda: fit_stacked_ridge(
+            [X, X], Y, [X, X], Y, chunk_length=4, n_inner_folds=2),
+        "StackedRidgeModel.fit_predict": lambda: StackedRidgeModel(
+        ).fit_predict([X, X], Y, chunk_length=4, n_inner_folds=2),
+        "variance_partitioning": lambda: variance_partitioning(
+            [X, X], Y, [X, X], Y, chunk_length=4, n_inner_folds=2),
         "nested_cv_step": lambda: nested_cv_step(
             np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
             [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
@@ -187,6 +206,11 @@ def _entry_points(tmp_path):
                                   "LanguageModelFeatureExtractor",
                                   "SpeechFeatureExtractor",
                                   "FeatureExtractorFactory speech",
+                                  "fit_banded_ridge",
+                                  "BandedRidgeModel.fit_predict",
+                                  "fit_stacked_ridge",
+                                  "StackedRidgeModel.fit_predict",
+                                  "variance_partitioning",
                                   "nested_cv_step"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.
