@@ -66,6 +66,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
      spectral refits and its chunked route; variance_partitioning with 2
      spaces. The same alphas, gammas and solver_paths, correlations within
      1e-5, stack weights within 1e-4, variance components within 1e-4.
+     Then the command line: cli.run on a small LeBel pickle (4 stories of
+     120 TRs, V=40) with the word rate, then the word rate and 6-wide
+     embeddings --banded and --stacking, and LinearPredictivityModel on a
+     seeded (400, 12) problem in 4 groups, card against CPU: the same
+     alphas, gammas and solver_paths, correlations within 1e-5, mean stack
+     weights within 1e-4, each fold's coefficients within 1e-5 of the
+     CPU's largest.
   5. main path: AbstractTrainer(...).train() on the card at full width, a
      LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
      static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
@@ -178,16 +185,44 @@ Phases, one line each; any failure exits non-zero and prints no result:
      alpha) on at least 99.9% of the voxels, correlations within 1e-4
      where they agree. Each fit prints its wall, stage split, peak memory,
      median r and route.
-Phases 5, 6, 12, 13 and 14 (a)-(b) set the kernel's launch count to 0 just
-before they run and read it just after; phases 7-10 call the fit or the
-step directly and print each fit's wall, median r, route and peak device
-memory. The last two lines are a JSON record of the kernel (launches on the
-main path, on the Narratives, LM, speech and banded paths; times at the
-Narratives and the speech shapes) and {"ok": true, "device": {...}}.
+ 15. README section 4's command line at full width: (a) phase 5's assembly
+     saved as a pickle (85 stories x 305 rows x 20,484 vertices, held
+     twice by the assembly: about 4.3 GB; write and load timed) and
+     cli.main(argv) with the argv a user would type (--dataset_type lebel
+     --assembly_path ... --modality embeddings --model_name random-static
+     --vector_path <phase 5's .kv> --ndelays 4 --lookback 256 --cache_dir
+     ... --results_dir ... --logger_backend none; the device defaults to
+     the card): 85 kernel
+     launches, the same alphas, median r within 1e-6 and solver_paths as
+     phase 5's trainer fitted with the CLI's train() arguments (one alpha
+     for all voxels: cli.py's default), median r above MEDIAN_R_FLOOR;
+     (b) --modalities wordrate embeddings with --banded, then --stacking:
+     their defaults are phase 14 (a)-(b)'s arguments, so 85 launches each
+     and phase 14's alphas (and gammas) and median r within 1e-6; (c)
+     sweeps.run_grid_sweep over layers 3, 6, 9 and 11 of phase 12's 12
+     stories saved as a pickle, the GPT-2-small-shaped model and
+     HashStubTokenizer injected through extractor_config_overrides and the
+     cache keys of phase 12 (model name, lookback 256, fullcontext, last
+     token, lebel): no window extracted, 48 launches, then a second call
+     that resumes from its checkpoints (no cli.run, no new run directory,
+     the same rows); (d) LinearPredictivityModel.fit at T=26,880, D=3,072,
+     V=20,484 (phase 9's generator) in 5 GroupKFold folds of groups of 320
+     rows: seconds per fold's SVD solve, fold 1's coefficients of 256
+     voxels within 1e-4 of a float64 solve on the card (relative to its
+     largest), median r above FUSED_MEDIAN_R_FLOOR. Each run prints its
+     wall, stage split, peak memory and the card.
+Phases 5, 6, 12, 13, 14 (a)-(b) and 15 (a)-(c) set the kernel's launch
+count to 0 just before they run and read it just after; phases 7-10 call
+the fit or the step directly and print each fit's wall, median r, route
+and peak device memory. The last two lines are a JSON record of the kernel
+(launches on the main path, on the Narratives, LM, speech, banded and
+command-line paths; times at the Narratives and the speech shapes) and
+{"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -461,6 +496,51 @@ STACK_SIMPLEX_ATOL, VP_IDENTITY_ATOL = 1e-5, 1e-6
 # 99.9% of the voxels, with correlations within 1e-4 where they do.
 BSCAN_T, BSCAN_TP, BSCAN_BANDS, BSCAN_RANK = 26880, 2048, (3072, 2048, 4), 128
 BSCAN_GAMMAS, BSCAN_CHUNK, BSCAN_MEDIAN_R_FLOOR = 5, 8192, 0.5
+
+# Phase 4's command-line cases: cli.run on a small LeBel pickle (4 stories
+# of 120 TRs, 6-wide embeddings, V=40) with the word rate, then the word
+# rate and the embeddings --banded (4 gammas) and --stacking, 3 inner folds
+# of 10-row chunks; and LinearPredictivityModel on a seeded (400, 12)
+# problem, V=40, 4 groups of 100 rows, 4 folds. Card against CPU: the same
+# alphas, gammas and solver_paths, correlations within 1e-5 (BANDED_ATOL),
+# stack weights within 1e-4, least-squares coefficients within 1e-5 of the
+# CPU's largest.
+SMALL_CLI_CASES = [
+    ("wordrate", ["--modalities", "wordrate", "--model_names", "wordrate"]),
+    ("--banded", ["--modalities", "wordrate", "embeddings", "--model_names",
+                  "wordrate", "random-static", "--banded", "--n_gammas",
+                  "4"]),
+    ("--stacking", ["--modalities", "wordrate", "embeddings",
+                    "--model_names", "wordrate", "random-static",
+                    "--stacking"]),
+]
+SMALL_LINEAR_T, SMALL_LINEAR_D, SMALL_LINEAR_GROUPS = 400, 12, 4
+LINEAR_COEF_RTOL = 1e-5
+
+# Phase 15: README section 4's command line at full width. (a) cli.main on
+# phase 5's assembly saved as a pickle, beside phase 5's trainer fitted with
+# the CLI's train() arguments (cli.py's defaults: one alpha for all voxels,
+# chunked folds of 20 rows, 5 inner folds); (b) --banded and --stacking
+# with the word rate and the embeddings, whose defaults (10 gammas, 5 inner
+# folds, chunks of 20) are phase 14 (a)-(b)'s arguments, so they must give
+# phase 14's picks and median r; (c) a layer sweep over phase 12's
+# activation cache (GPT-2 small has 12 blocks, layers 0-11: the sweep
+# takes 3, 6, 9 and 11), run twice (the second resumes from its
+# checkpoints); (d) LinearPredictivityModel at phase 9's generator's full
+# width (T=26,880, D=3,072, V=20,484) in 5 GroupKFold folds of groups of
+# 320 rows, the first fold's coefficients of LINEAR_CHECK_VOXELS voxels
+# against a float64 solve on the card (within 1e-4 of its largest), median
+# r above FUSED_MEDIAN_R_FLOOR (ordinary least squares from 21,504 rows of
+# 3,072 features keeps most of the 0.707 ceiling).
+CLI_TRAIN = dict(folding_type="chunked", n_outer_folds=5, n_inner_folds=5,
+                 chunk_length=20, singcutoff=1e-10, single_alpha=True,
+                 normalpha=True, use_corr=True, normalize_features=False,
+                 normalize_targets=False, seed=0, fast_scan=False,
+                 significance="parametric", n_permutations=1000)
+CLI_SAME_R_ATOL = 1e-6
+CLI_LAYERS = [3, 6, 9, 11]
+LINEAR_T, LINEAR_GROUP_ROWS, LINEAR_FOLDS = 26880, 320, 5
+LINEAR_CHECK_VOXELS, LINEAR_F64_RTOL = 256, 1e-4
 
 
 def phase(name):
@@ -2025,7 +2105,7 @@ def lm_phase(asm, workdir, smi_line):
     and trainer at full width on the first LM_STORIES stories of phase 5's
     assembly, their stimuli replaced by fullcontext windows: checks (a)-(e)
     and the extraction's counts and rates. Returns the kernel's launches in
-    the first train()."""
+    the first train() and the LM assembly."""
     import copy
     import dataclasses
 
@@ -2116,7 +2196,7 @@ def lm_phase(asm, workdir, smi_line):
           f"{dr:.3e}", flush=True)
     if not same or dr > 1e-6:
         raise AssertionError("(e) the cached run's metrics differ")
-    return launches
+    return launches, lm_asm
 
 
 # Phases 4 and 13: README section 3 from AssemblyGenerator to the fit, with
@@ -2725,7 +2805,7 @@ def banded_phase(asm, kv_path, workdir, smi_line):
     trainer, (b) the stacked one, (c) variance partitioning of (a)'s
     spaces, (d) fit_banded_ridge at benchmarks/banded_scan.py's surface
     problem, device-resident and host-streamed. Returns (a)'s launches
-    ((b) must launch as many)."""
+    ((b) must launch as many) and (a)'s and (b)'s metrics."""
     import torch
 
     from litcoder_core_torch.models import (
@@ -2809,6 +2889,330 @@ def banded_phase(asm, kv_path, workdir, smi_line):
     if same.mean() < 0.999 or dr > 1e-4:
         raise AssertionError("(d) device-resident and host-streamed fits "
                              "disagree")
+    return launches, m_a, m_b
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, make):
+    """owner.<name> replaced by make(original) inside the block (a method
+    of a class, or a module's function); the original is put back."""
+    original = owner.__dict__[name]
+    setattr(owner, name, make(getattr(owner, name)))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def cli_argv(asm_path, workdir, label, *extra):
+    """The LeBel command line a user would type, with the cache and results
+    in workdir/<label>_cache and _results."""
+    return ["--dataset_type", "lebel", "--assembly_path", asm_path,
+            "--ndelays", "4", "--lookback", str(LM_LOOKBACK),
+            "--cache_dir", os.path.join(workdir, f"{label}_cache"),
+            "--results_dir", os.path.join(workdir, f"{label}_results"),
+            "--logger_backend", "none", *extra]
+
+
+def small_cli_phase(workdir):
+    """cli.run on a small LeBel pickle, card against CPU (word rate;
+    --banded and --stacking with the embeddings), then
+    LinearPredictivityModel on a small seeded problem."""
+    from litcoder_core_torch import cli, save_assembly
+    from litcoder_core_torch.models import LinearPredictivityModel
+
+    kv_path = os.path.join(workdir, "small_cli.kv")
+    asm, _ = build_assembly(4, 4, 120, 6, 40, 400, kv_path, 1.0)
+    asm_path = os.path.join(workdir, "small_cli.pkl")
+    save_assembly(asm, asm_path)
+    for label, flags in SMALL_CLI_CASES:
+        got = {}
+        for device in ("cuda", "cpu"):
+            argv = cli_argv(asm_path, workdir, f"cli_{device}", *flags,
+                            "--vector_path", kv_path, "--chunk_length",
+                            "10", "--n_inner_folds", "3", "--device", device)
+            got[device] = cli.run(vars(cli.parse_args(argv)))
+        gpu, cpu = got["cuda"], got["cpu"]
+        same = (gpu["best_alphas"] == cpu["best_alphas"]
+                and gpu.get("best_gammas") == cpu.get("best_gammas"))
+        dr = max_gap(gpu["correlations"], cpu["correlations"])
+        line = (f"  cli.run {label}: solver_paths {gpu['solver_paths']}, "
+                f"same alphas and gammas {same}, max |dr| {dr:.3e} (bar "
+                f"{BANDED_ATOL})")
+        dw = 0.0
+        if "stack_weights_mean" in cpu:
+            dw = max_gap(gpu["stack_weights_mean"], cpu["stack_weights_mean"])
+            line += (f", max |d mean stack weight| {dw:.3e} (bar "
+                     f"{STACK_W_ATOL})")
+        print(line, flush=True)
+        if (not same or dr > BANDED_ATOL or dw > STACK_W_ATOL
+                or gpu["solver_paths"] != cpu["solver_paths"]):
+            raise AssertionError(f"cli.run {label}: card and CPU disagree")
+
+    rng = np.random.default_rng(21)
+    X = rng.standard_normal((SMALL_LINEAR_T, SMALL_LINEAR_D),
+                            dtype=np.float32)
+    W = rng.standard_normal((SMALL_LINEAR_D, 40), dtype=np.float32)
+    Y = X @ W + 2.0 * rng.standard_normal((SMALL_LINEAR_T, 40),
+                                          dtype=np.float32)
+    groups = np.repeat(np.arange(SMALL_LINEAR_GROUPS),
+                       SMALL_LINEAR_T // SMALL_LINEAR_GROUPS)
+    models, got = {}, {}
+    for device in ("cuda", "cpu"):
+        models[device] = LinearPredictivityModel(
+            {"n_folds": SMALL_LINEAR_GROUPS, "device": device})
+        got[device] = models[device].fit(X, Y, groups=groups)
+    dr = max_gap(got["cuda"]["correlations"], got["cpu"]["correlations"])
+    dc = max(max_gap(g[0], c[0]) / float(np.max(np.abs(c[0])))
+             for g, c in zip(models["cuda"].models, models["cpu"].models))
+    print(f"  LinearPredictivityModel ({SMALL_LINEAR_T}, {SMALL_LINEAR_D}), "
+          f"{SMALL_LINEAR_GROUPS} groups: median r "
+          f"{got['cuda']['median_score']:.6f}, max |dr| {dr:.3e} (bar "
+          f"{BANDED_ATOL}), max |d coef| / max |coef| {dc:.3e} (bar "
+          f"{LINEAR_COEF_RTOL})", flush=True)
+    if dr > BANDED_ATOL or dc > LINEAR_COEF_RTOL:
+        raise AssertionError("LinearPredictivityModel: card and CPU disagree")
+
+
+def saved_pickle(asm, path):
+    """save_assembly to `path`; prints the write and a timed load_assembly
+    (what cli.run pays first)."""
+    from litcoder_core_torch import load_assembly, save_assembly
+
+    t0 = time.perf_counter()
+    save_assembly(asm, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_assembly(path)
+    load_s = time.perf_counter() - t0
+    print(f"  {os.path.basename(path)}: {len(asm.stories)} stories, "
+          f"{os.path.getsize(path)} bytes, save_assembly {save_s:.3f} s, "
+          f"load_assembly {load_s:.3f} s", flush=True)
+    return path
+
+
+def timed_main(label, argv, smi_line):
+    """cli.main(argv) on the card, which must launch the kernel once per
+    story: (metrics, launches); prints the wall, the stage split and the
+    peak."""
+    import torch
+
+    from litcoder_core_torch import cli
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    metrics = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = lf.launches
+    peak = torch.cuda.max_memory_allocated()
+    stages = metrics["trainer_stage_seconds"]
+    print(f"  {label}: cli.main wall {wall:.3f} s (outside train(): "
+          f"{wall - sum(stages.values()):.3f} s, the pickle's load and the "
+          f"wiring); trainer_stage_seconds {json.dumps(stages)}; "
+          f"lanczos_fir launches {launches}; median r "
+          f"{metrics['median_score']:.6f}; solver_paths "
+          f"{metrics['solver_paths']}; max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB), card: {smi_line}", flush=True)
+    if launches != N_STORIES:
+        raise AssertionError(f"{label}: the kernel ran {launches} times, not "
+                             f"{N_STORIES}")
+    return metrics, launches
+
+
+def same_fit(label, got, want, keys=("best_alphas",)):
+    """The same picks and median r within CLI_SAME_R_ATOL as `want`."""
+    dm = abs(got["median_score"] - want["median_score"])
+    same = all(got[k] == want[k] for k in keys)
+    print(f"  {label}: same {', '.join(keys)} {same}, |d median r| "
+          f"{dm:.3e} (bar {CLI_SAME_R_ATOL}), solver_paths equal "
+          f"{got['solver_paths'] == want['solver_paths']}", flush=True)
+    if not same or dm > CLI_SAME_R_ATOL \
+            or got["solver_paths"] != want["solver_paths"]:
+        raise AssertionError(f"{label}: the fits differ")
+
+
+def cli_layer_sweep(lm_asm, workdir, smi_line):
+    """(c): sweeps.run_grid_sweep over CLI_LAYERS of phase 12's assembly,
+    its GPT-2-small-shaped model injected and its activation cache reused;
+    a second call must resume from its checkpoints."""
+    import glob
+
+    import torch
+
+    from litcoder_core_torch import cli, sweeps
+    from litcoder_core_torch.features.factory import FeatureExtractorFactory
+    from litcoder_core_torch.ops import lanczos_fir as lf
+    from litcoder_core_torch.utils.testing import HashStubTokenizer
+
+    lm_path = saved_pickle(lm_asm, os.path.join(workdir, "lm12.pkl"))
+    model, desc = lm_model(GPT2_SMALL)
+    base = vars(cli.parse_args([
+        "--dataset_type", "lebel", "--assembly_path", lm_path,
+        "--modalities", "language_model", "--model_names",
+        "gpt2-random-init", "--last_token", "--ndelays", "4",
+        "--lookback", str(LM_LOOKBACK), "--cache_dir",
+        os.path.join(workdir, "lm_cache"), "--results_dir",
+        os.path.join(workdir, "sweep_results"), "--logger_backend", "none"]))
+    base["extractor_config_overrides"] = {"language_model": {
+        "model": model.to("cuda"), "tokenizer": HashStubTokenizer(),
+        "batch_size": LM_BATCH}}
+    kw = dict(checkpoint_dir=os.path.join(workdir, "sweep_ckpt"),
+              summary_path=os.path.join(workdir, "sweep_summary.json"),
+              layer_idx=CLI_LAYERS)
+    extractors, walls = [], []
+
+    def record_extractor(create):
+        def create_and_keep(*args, **kwargs):
+            extractors.append(create(*args, **kwargs))
+            return extractors[-1]
+        return create_and_keep
+
+    def timed_run(run):
+        def run_and_time(config):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run(config)
+            walls.append((config["layer_idx"], time.perf_counter() - t0,
+                          metrics["trainer_stage_seconds"]))
+            return metrics
+        return run_and_time
+
+    lf.launches = 0
+    with wrapped(FeatureExtractorFactory, "create_extractor",
+                 record_extractor), wrapped(cli, "run", timed_run):
+        t0 = time.perf_counter()
+        rows = sweeps.run_grid_sweep(base, **kw)
+        wall = time.perf_counter() - t0
+        launches = lf.launches
+        runs = sorted(glob.glob(os.path.join(workdir, "sweep_results",
+                                             "run_*")))
+        t0 = time.perf_counter()
+        again = sweeps.run_grid_sweep(base, **kw)
+        wall_again = time.perf_counter() - t0
+    print(f"  (c) model: {desc}; grid of {len(rows)} layers in {wall:.3f} s, "
+          f"lanczos_fir launches {launches}", flush=True)
+    for layer, seconds, stages in walls:
+        print(f"  (c) layer {layer}: cli.run {seconds:.3f} s, "
+              f"trainer_stage_seconds {json.dumps(stages)}", flush=True)
+    for ex in extractors:
+        print(f"  (c) extractor counts {json.dumps(ex.counts)}", flush=True)
+    for line in sweeps.summarize_sweep(rows).splitlines():
+        print(f"  (c) {line}", flush=True)
+    runs_again = sorted(glob.glob(os.path.join(workdir, "sweep_results",
+                                               "run_*")))
+    print(f"  (c) second call: {wall_again:.3f} s, {len(walls)} cli.run "
+          f"calls in all, {len(runs_again)} run directories (first call "
+          f"{len(runs)}), the same rows {again == rows}", flush=True)
+    forwards = sum(ex.counts["windows"] for ex in extractors)
+    if (any(r["error"] is not None for r in rows)
+            or [r["layer_idx"] for r in rows] != CLI_LAYERS):
+        raise AssertionError(f"(c) sweep rows {rows}")
+    if forwards or len(extractors) != len(CLI_LAYERS):
+        raise AssertionError(f"(c) {forwards} windows extracted by "
+                             f"{len(extractors)} extractors: the activation "
+                             "cache was missed")
+    if launches != len(CLI_LAYERS) * LM_STORIES:
+        raise AssertionError(f"(c) the kernel ran {launches} times")
+    if again != rows or runs_again != runs or len(walls) != len(CLI_LAYERS):
+        raise AssertionError("(c) the second sweep did not resume")
+
+
+def linear_full_width(smi_line):
+    """(d): LinearPredictivityModel.fit at phase 9's generator's full
+    width, the first fold's coefficients against a float64 solve."""
+    import torch
+
+    from litcoder_core_torch.models import LinearPredictivityModel, linear
+    from litcoder_core_torch.models.folding import group_kfold_splits
+
+    X, Y = signal_problem(LINEAR_T, N_VERTICES, 9)
+    groups = np.arange(LINEAR_T) // LINEAR_GROUP_ROWS
+    model = LinearPredictivityModel({"n_folds": LINEAR_FOLDS,
+                                     "device": "cuda"})
+    solves = []
+
+    def timed_solve(solve):
+        def solve_and_time(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(*args)
+            torch.cuda.synchronize()
+            solves.append(time.perf_counter() - t0)
+            return out
+        return solve_and_time
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with wrapped(linear, "_lstsq_fit", timed_solve):
+        metrics = model.fit(X, Y, groups=groups)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    train_idx, _ = group_kfold_splits(groups, LINEAR_FOLDS)[0]
+    tr = torch.as_tensor(train_idx, device="cuda")
+    Xtr = X[tr].double()
+    Ytr = Y[tr][:, :LINEAR_CHECK_VOXELS].double()
+    want = torch.linalg.lstsq(Xtr - Xtr.mean(0), Ytr - Ytr.mean(0)
+                              ).solution.cpu().numpy()
+    got = model.models[0][0][:, :LINEAR_CHECK_VOXELS]
+    err = float(np.max(np.abs(got - want))) / float(np.max(np.abs(want)))
+    print(f"  (d) T={LINEAR_T}, D={FUSED_D}, V={N_VERTICES}, "
+          f"{LINEAR_FOLDS} GroupKFold folds of groups of {LINEAR_GROUP_ROWS} "
+          f"rows ({len(train_idx)} training rows in fold 1): fit wall "
+          f"{wall:.3f} s, SVD solve per fold "
+          f"{[round(t, 3) for t in solves]} s, median r "
+          f"{metrics['median_score']:.6f} (floor {FUSED_MEDIAN_R_FLOOR}), "
+          f"fold 1's coefficients of {LINEAR_CHECK_VOXELS} voxels against "
+          f"float64 lstsq: max |d| / max |ref| {err:.3e} (bar "
+          f"{LINEAR_F64_RTOL}); max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB), card: {smi_line}", flush=True)
+    if err > LINEAR_F64_RTOL or not metrics["median_score"] \
+            > FUSED_MEDIAN_R_FLOOR or len(solves) != LINEAR_FOLDS:
+        raise AssertionError("(d) the least-squares fit")
+
+
+def cli_phase(asm, kv_path, lm_asm, banded, stacked, workdir, smi_line):
+    """README section 4's command line at full width: (a) the embeddings
+    through cli.main beside phase 5's trainer with the CLI's arguments,
+    (b) --banded and --stacking against phase 14 (a)-(b), (c) the layer
+    sweep, (d) the least-squares model. Returns (a)'s kernel launches."""
+    asm_path = saved_pickle(asm, os.path.join(workdir, "lebel_uts03.pkl"))
+
+    # (a) the embeddings, and phase 5's trainer with the CLI's arguments.
+    argv = cli_argv(asm_path, workdir, "cli", "--modality", "embeddings",
+                    "--model_name", "random-static", "--vector_path",
+                    kv_path)
+    m_cli, launches = timed_main("(a) embeddings", argv, smi_line)
+    twin = make_trainer(asm, kv_path, "cuda",
+                        os.path.join(workdir, "cli_twin_results"))
+    m_twin = twin.train(**CLI_TRAIN)
+    check_metrics(m_cli, N_VERTICES, np.logspace(-1, 8, 10),
+                  m_twin["solver_paths"])
+    same_fit("(a) cli.main against phase 5's trainer with the CLI's "
+             "arguments", m_cli, m_twin)
+    if not m_cli["median_score"] > MEDIAN_R_FLOOR:
+        raise AssertionError(f"(a) median r {m_cli['median_score']}")
+
+    # (b) the two feature spaces, --banded then --stacking.
+    spaces = ["--modalities", "wordrate", "embeddings", "--model_names",
+              "wordrate", "random-static", "--vector_path", kv_path]
+    for flag, want, keys in (("--banded", banded,
+                              ("best_alphas", "best_gammas")),
+                             ("--stacking", stacked, ("best_alphas",))):
+        got, _ = timed_main(f"(b) {flag}",
+                         cli_argv(asm_path, workdir, flag[2:], *spaces,
+                                  flag), smi_line)
+        same_fit(f"(b) {flag} against phase 14", got, want, keys)
+
+    cli_layer_sweep(lm_asm, workdir, smi_line)
+    linear_full_width(smi_line)
     return launches
 
 
@@ -2848,6 +3252,7 @@ def main() -> int:
         small_lm_phase(workdir)
         small_speech_phase(workdir)
         banded_cases_phase()
+        small_cli_phase(workdir)
 
         phase("5 main path at full size")
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
@@ -2873,14 +3278,18 @@ def main() -> int:
         average_trainer_phase(asm, kv_path, workdir, smi_line)
 
         phase("12 language-model trainer at full width")
-        record["launches_lm"] = lm_phase(asm, workdir, smi_line)
+        record["launches_lm"], lm_asm = lm_phase(asm, workdir, smi_line)
 
         phase("13 README section 3 with speech features at full width")
         record["launches_speech"] = speech_phase(workdir, smi_line)
 
         phase("14 README section 4's --banded fit at full width")
-        record["launches_banded"] = banded_phase(asm, kv_path, workdir,
-                                                 smi_line)
+        record["launches_banded"], m_banded, m_stacked = banded_phase(
+            asm, kv_path, workdir, smi_line)
+
+        phase("15 README section 4's command line at full width")
+        record["launches_cli"] = cli_phase(asm, kv_path, lm_asm, m_banded,
+                                           m_stacked, workdir, smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

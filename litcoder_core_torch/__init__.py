@@ -18,9 +18,14 @@ fast_scan, permutation significance), banded ridge, stacked regression and
 variance partitioning over feature spaces (models.fit_banded_ridge,
 models.fit_stacked_ridge, models.variance_partitioning, fed by the
 trainer's concat_features=False), the fused step parallel.nested_cv_step,
-and load_assembly/save_assembly. ROADMAP.md lists the rest. Optional packages (transformers, tensorboard, matplotlib,
-seaborn, wandb, nibabel, nilearn, soundfile) are imported only where they
-are used; pandas is not needed.
+load_assembly/save_assembly, the config-driven command line (cli.main,
+the `litcoder-torch` console script, and cli.run), its layer and grid
+sweeps (sweeps.run_layer_sweep, sweeps.run_grid_sweep), and the
+least-squares and scikit-learn models (models.LinearPredictivityModel,
+models.SklearnPredictivityModel). ROADMAP.md lists the rest: the mesh and
+n_devices sharding. Optional packages (transformers, tensorboard,
+matplotlib, seaborn, wandb, nibabel, nilearn, soundfile, scikit-learn) are
+imported only where they are used; pandas is not needed.
 """
 
 __version__ = "0.1.0"

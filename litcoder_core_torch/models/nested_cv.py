@@ -1147,19 +1147,25 @@ def fit_nested_cv(
 
 
 class NestedCVModel(BasePredictivityModel):
-    """Nested-CV ridge model on `device` (reference NestedCVModel API)."""
+    """Nested-CV ridge model on `device` (reference NestedCVModel API;
+    `mesh`/`n_devices` raise NotImplementedError at fit_predict)."""
 
     def __init__(self, model_name: str = "ridge_regression", seed: int = 0,
-                 voxel_chunk_size: Optional[int] = None, device="cuda"):
+                 voxel_chunk_size: Optional[int] = None, mesh=None,
+                 n_devices: Optional[int] = None, device="cuda"):
         super().__init__(model_name)
         self.seed = seed
         self.voxel_chunk_size = voxel_chunk_size
+        self.mesh = mesh
+        self.n_devices = n_devices
         self.device = device
 
     def fit_predict(self, features, targets, X_test=None, y_test=None,
                     groups=None, **kwargs):
         kwargs.setdefault("seed", self.seed)
         kwargs.setdefault("voxel_chunk_size", self.voxel_chunk_size)
+        kwargs.setdefault("mesh", self.mesh)
+        kwargs.setdefault("n_devices", self.n_devices)
         kwargs.setdefault("device", self.device)
         return fit_nested_cv(features, targets, X_test=X_test,
                              y_test=y_test, groups=groups, **kwargs)

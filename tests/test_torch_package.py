@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import litcoder_core_torch
+from litcoder_core_torch import cli
 from litcoder_core_torch import (
     AbstractTrainer,
     Downsampler,
@@ -32,6 +33,8 @@ from litcoder_core_torch.features.language_model import (
 from litcoder_core_torch.features.speech_model import SpeechFeatureExtractor
 from litcoder_core_torch.models import (
     BandedRidgeModel,
+    LinearPredictivityModel,
+    SklearnPredictivityModel,
     StackedRidgeModel,
     fit_banded_ridge,
     fit_stacked_ridge,
@@ -70,7 +73,8 @@ def test_every_module_imports_without_jax():
                  "assembly.lpp_processor", "assembly.assembly_generator",
                  "brain_projection.project", "brain_projection.simple_cache",
                  "models.banded", "models.stacking",
-                 "models.variance_partition"):
+                 "models.variance_partition", "models.linear",
+                 "models.sklearn_model", "cli", "sweeps"):
         assert f"litcoder_core_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -90,9 +94,9 @@ def test_every_module_imports_without_jax():
 
 def test_optional_packages_stay_unimported():
     """The card's machine may lack transformers, tensorboard, matplotlib,
-    wandb, pandas, nibabel, nilearn or soundfile: importing the package,
-    the extractors, the processors and brain projection must not import
-    them."""
+    wandb, pandas, nibabel, nilearn, soundfile or scikit-learn: importing
+    the package, the extractors, the processors, brain projection, the
+    models, the CLI and the sweeps must not import them."""
     code = (
         "import sys\n"
         "import litcoder_core_torch\n"
@@ -102,9 +106,13 @@ def test_optional_packages_stay_unimported():
         "import litcoder_core_torch.brain_projection\n"
         "import litcoder_core_torch.utils\n"
         "import litcoder_core_torch.plotting\n"
+        "import litcoder_core_torch.models\n"
+        "import litcoder_core_torch.cli\n"
+        "import litcoder_core_torch.sweeps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('transformers', 'tensorboard', 'matplotlib', 'wandb', "
-        "'seaborn', 'nilearn', 'nibabel', 'pandas', 'soundfile'))\n"
+        "'seaborn', 'nilearn', 'nibabel', 'pandas', 'soundfile', "
+        "'sklearn'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -189,6 +197,16 @@ def _entry_points(tmp_path):
         ).fit_predict([X, X], Y, chunk_length=4, n_inner_folds=2),
         "variance_partitioning": lambda: variance_partitioning(
             [X, X], Y, [X, X], Y, chunk_length=4, n_inner_folds=2),
+        "cli.run": lambda: cli.run({"dataset_type": "lebel"}),
+        "cli.main": lambda: cli.main([
+            "--dataset_type", "lebel", "--assembly_path", "a.pkl",
+            "--modality", "wordrate", "--model_name", "wordrate",
+            "--ndelays", "1", "--lookback", "8", "--cache_dir",
+            str(tmp_path)]),
+        "LinearPredictivityModel.fit": lambda: LinearPredictivityModel(
+            {}).fit(X, Y),
+        "SklearnPredictivityModel.fit": lambda: SklearnPredictivityModel(
+            {"use_groups": False, "n_folds": 2}).fit(X, Y),
         "nested_cv_step": lambda: nested_cv_step(
             np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
             [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
@@ -211,6 +229,9 @@ def _entry_points(tmp_path):
                                   "fit_stacked_ridge",
                                   "StackedRidgeModel.fit_predict",
                                   "variance_partitioning",
+                                  "cli.run", "cli.main",
+                                  "LinearPredictivityModel.fit",
+                                  "SklearnPredictivityModel.fit",
                                   "nested_cv_step"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.
