@@ -211,12 +211,31 @@ Phases, one line each; any failure exits non-zero and prints no result:
      voxels within 1e-4 of a float64 solve on the card (relative to its
      largest), median r above FUSED_MEDIAN_R_FLOOR. Each run prints its
      wall, stage split, peak memory and the card.
-Phases 5, 6, 12, 13, 14 (a)-(b) and 15 (a)-(c) set the kernel's launch
-count to 0 just before they run and read it just after; phases 7-10 call
+ 16. the mesh paths (parallel/mesh.py, parallel/tp.py) on meshes that
+     repeat cuda:0: (a) phase 8 (b)'s north-star fit on 8 entries (V % 8
+     = 4: the pad runs) against phase 8 (b) (the same alpha on 99.9% of
+     the voxels, median r within 1e-5, its solver_paths), with n_devices=1
+     (every alpha, correlations within 1e-6), and make_mesh(2) refused on
+     one card; (b) phase 14 (a)-(b)'s trainers with the banded and stacked
+     models on 4 entries (85 launches each, 99.9% of phase 14's picks,
+     median r within 1e-4, the spectral and per-voxel-index Cholesky
+     refits); (c) phase 10's 'auto' step on 4 entries (99.9% of the
+     alphas, correlations within 1e-5, shards of V/4); (d) phase 12's model
+     on a (2, 2) mesh over two of its stories and phase 13's encoder on
+     (1, 2) over 30 s of its audio, every layer within 1e-4 of its largest
+     magnitude against the unsharded extractor, windows/s beside the
+     unsharded rate, and phase 12's trainer on those TP features (its
+     other stories from phase 12's cache): 12 launches, phase 12's alphas
+     on 99.9% of the voxels; (e) phase 15 (a)'s argv with --n_devices 1
+     (85 launches, its alphas and median r exactly), and --tp_data 1
+     --tp_model 2 refused by make_lm_mesh on one card.
+Phases 5, 6, 12, 13, 14 (a)-(b), 15 (a)-(c) and 16's trainers set the
+kernel's launch count to 0 just before they run and read it just after; phases 7-10 call
 the fit or the step directly and print each fit's wall, median r, route
 and peak device memory. The last two lines are a JSON record of the kernel
-(launches on the main path, on the Narratives, LM, speech, banded and
-command-line paths; times at the Narratives and the speech shapes) and
+(launches on the main path, on the Narratives, LM, speech, banded,
+command-line and mesh paths; times at the Narratives and the speech
+shapes) and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -1532,7 +1551,8 @@ class LogLines(logging.Handler):
 
 
 def northstar_phase(smi_line):
-    """benchmarks/northstar.py's whole-brain train/test fit, three ways."""
+    """benchmarks/northstar.py's whole-brain train/test fit, three ways.
+    Returns (b)'s (metrics, alphas), which phase 16 (a) is held to."""
     import torch
 
     X, Y = signal_problem(NS_T + NS_TEST, NS_V, 1, n_null=NS_NULL)
@@ -1574,6 +1594,7 @@ def northstar_phase(smi_line):
     profile_fit("(a)", smi_line, *args, voxel_chunk_size=NS_CHUNK)
     del X, Y, args
     torch.cuda.empty_cache()
+    return mb, ab
 
 
 def eigh_search_phase(smi_line):
@@ -1730,7 +1751,9 @@ def stage_split(args, folds, grid, iters=3):
 
 def bench_step_phase(smi_line):
     """bench.py's fused step on the card: Woodbury, Cholesky and eigh scans
-    and the fast scan, their walls, agreement, stage split and TFLOP/s."""
+    and the fast scan, their walls, agreement, stage split and TFLOP/s.
+    Returns the 'auto' step's (alphas, metrics), which phase 16 (c) is
+    held to."""
     import torch
 
     from litcoder_core_torch.parallel.step import equal_size_folds
@@ -1769,6 +1792,7 @@ def bench_step_phase(smi_line):
     stage_split(args, folds, grid)
     del args
     torch.cuda.empty_cache()
+    return runs["auto"][:2]
 
 
 def step_full_width_phase(smi_line):
@@ -2001,9 +2025,11 @@ def compare_layers(label, got, want, rtol):
     return worst
 
 
-def lm_trainer(assembly, extractor_model, device, workdir, label, layer):
-    """(trainer, extractor): the LM extractor from the factory, with its
-    cache in workdir/<label>_cache, in the LeBel trainer."""
+def lm_trainer(assembly, extractor_model, device, workdir, label, layer,
+               mesh=None):
+    """(trainer, extractor): the LM extractor from the factory (on `mesh`
+    when given: tensor-parallel), with its cache in workdir/<label>_cache,
+    in the LeBel trainer."""
     from litcoder_core_torch import (
         AbstractTrainer,
         Downsampler,
@@ -2015,7 +2041,8 @@ def lm_trainer(assembly, extractor_model, device, workdir, label, layer):
     ex = FeatureExtractorFactory.create_extractor(
         "language_model", "gpt2-random-init",
         {"model": extractor_model, "tokenizer": HashStubTokenizer(),
-         "device": device, "batch_size": LM_BATCH, "last_token": True},
+         "device": device, "batch_size": LM_BATCH, "last_token": True,
+         "mesh": mesh},
         cache_dir=os.path.join(workdir, f"{label}_cache"))
     trainer = AbstractTrainer(
         assembly=assembly, feature_extractors=[ex],
@@ -2105,7 +2132,8 @@ def lm_phase(asm, workdir, smi_line):
     and trainer at full width on the first LM_STORIES stories of phase 5's
     assembly, their stimuli replaced by fullcontext windows: checks (a)-(e)
     and the extraction's counts and rates. Returns the kernel's launches in
-    the first train() and the LM assembly."""
+    the first train(), the LM assembly, the first train()'s metrics and its
+    windows/s (phase 16 (d) reuses all four and the activation cache)."""
     import copy
     import dataclasses
 
@@ -2143,7 +2171,7 @@ def lm_phase(asm, workdir, smi_line):
                    card_feats, flat.extract_all_layers(check),
                    LM_PREFIX_RTOL)
 
-    runs = []
+    runs, rate = [], None
     for run in (1, 2):
         trainer, ex = lm_trainer(lm_asm, card_model, "cuda", workdir, "lm",
                                  LM_LAYER)
@@ -2165,6 +2193,7 @@ def lm_phase(asm, workdir, smi_line):
               f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}",
               flush=True)
         if counts["windows"]:
+            rate = counts["windows"] / extract_s
             print(f"  extraction: {counts['windows']} windows, "
                   f"{counts['real_tokens']} real and "
                   f"{counts['padded_tokens']} padded tokens in "
@@ -2196,7 +2225,7 @@ def lm_phase(asm, workdir, smi_line):
           f"{dr:.3e}", flush=True)
     if not same or dr > 1e-6:
         raise AssertionError("(e) the cached run's metrics differ")
-    return launches, lm_asm
+    return launches, lm_asm, m1, rate
 
 
 # Phases 4 and 13: README section 3 from AssemblyGenerator to the fit, with
@@ -2321,9 +2350,9 @@ def speech_model(config):
 
 
 def speech_extractor(model, fe, device, chunk, context, pool="last",
-                     layer=SPEECH_LAYER):
+                     layer=SPEECH_LAYER, mesh=None):
     """The port's speech extractor on an injected model (moved to the card
-    unless `device` is 'cpu')."""
+    unless `device` is 'cpu'; tensor-parallel on `mesh` when given)."""
     from litcoder_core_torch.features.speech_model import (
         SpeechFeatureExtractor,
     )
@@ -2331,7 +2360,8 @@ def speech_extractor(model, fe, device, chunk, context, pool="last",
     kw = {"device": "cpu"} if device == "cpu" else {}
     return SpeechFeatureExtractor(
         model_name=SPEECH_MODEL_NAME, chunk_size=chunk, context_size=context,
-        layer=layer, pool=pool, model=model, feature_extractor=fe, **kw)
+        layer=layer, pool=pool, model=model, feature_extractor=fe,
+        mesh=mesh, **kw)
 
 
 def speech_trainer(asm, model, fe, device, workdir, label, chunk, context,
@@ -2417,7 +2447,8 @@ def speech_phase(workdir, smi_line):
     windows card against CPU, (b) one kernel launch in train(), (c) finite
     metrics and the JAX fit's solver_paths, (d) a second train() on the
     same cache directory runs no forward and gives the same metrics bit for
-    bit. Returns the kernel's launches in the first train()."""
+    bit. Returns the kernel's launches in the first train() and the audio
+    file (phase 16 (d) reads its first 30 s)."""
     import copy
 
     import torch
@@ -2534,7 +2565,7 @@ def speech_phase(workdir, smi_line):
           flush=True)
     if not same:
         raise AssertionError("(d) the cached run's metrics differ")
-    return launches
+    return launches, sd.audio_path
 
 
 # Phases 4 and 14: banded ridge, stacking and variance partitioning.
@@ -3182,7 +3213,8 @@ def cli_phase(asm, kv_path, lm_asm, banded, stacked, workdir, smi_line):
     """README section 4's command line at full width: (a) the embeddings
     through cli.main beside phase 5's trainer with the CLI's arguments,
     (b) --banded and --stacking against phase 14 (a)-(b), (c) the layer
-    sweep, (d) the least-squares model. Returns (a)'s kernel launches."""
+    sweep, (d) the least-squares model. Returns (a)'s kernel launches, argv
+    and metrics (phase 16 (e) reruns that argv with --n_devices 1)."""
     asm_path = saved_pickle(asm, os.path.join(workdir, "lebel_uts03.pkl"))
 
     # (a) the embeddings, and phase 5's trainer with the CLI's arguments.
@@ -3213,6 +3245,319 @@ def cli_phase(asm, kv_path, lm_asm, banded, stacked, workdir, smi_line):
 
     cli_layer_sweep(lm_asm, workdir, smi_line)
     linear_full_width(smi_line)
+    return launches, argv, m_cli
+
+
+# Phase 16: the mesh paths (parallel/mesh.py, parallel/tp.py) at full width.
+# One card runs them on meshes whose device list repeats cuda:0, the
+# counterpart of the JAX tests' virtual CPU devices: the shard, replicate
+# and gather logic, the route switches and the tensor-parallel forwards,
+# not concurrency across cards. (a) phase 8 (b)'s north-star problem on
+# 8 entries (V % 8 = 4: the pad runs) against phase 8 (b): the same alpha
+# on at least 99.9% of the voxels, correlations within 1e-4 where they
+# agree, median r within 1e-5; n_devices=1 against it: every alpha the same,
+# correlations within 1e-6. (b) phase 14 (a)-(b)'s trainers with the models
+# on 4 entries: the scan shards, the banded refit is spectral (not grouped
+# Cholesky) and the stacked one per-voxel-index Cholesky, so 99.9% of the
+# picks and median r within 1e-4. (c) phase 10's 'auto' step on 4 entries:
+# 99.9% of the alphas, correlations within 1e-5, shards of V/4. (d) tensor
+# parallelism: phase 12's model on a (2, 2) mesh over two of its stories
+# and phase 13's encoder on (1, 2) over the first 30 s of its audio, every
+# layer within 1e-4 of that layer's largest magnitude (fp32, TF32 off), and
+# phase 12's trainer on the TP features of those stories (its other ten
+# stories from phase 12's cache): phase 12's alphas on 99.9% of the voxels.
+# (e) phase 15 (a)'s argv with --n_devices 1: its alphas and median r
+# exactly; --tp_data 1 --tp_model 2 on one card: make_lm_mesh's error.
+MESH_ENTRIES_FIT, MESH_ENTRIES = 8, 4
+MESH_LM_SHAPE, MESH_SPEECH_SHAPE = (2, 2), (1, 2)
+MESH_LM_STORIES, MESH_SPEECH_SECONDS = 2, 30
+MESH_TP_RTOL, MESH_SAME_SHARE = 1e-4, 0.999
+
+
+def mesh_northstar(smi_line, want):
+    """(a): phase 8 (b)'s fit on 8 entries of cuda:0 and with n_devices=1."""
+    import torch
+
+    from litcoder_core_torch.parallel.mesh import make_mesh
+
+    mb, ab = want
+    X, Y = signal_problem(NS_T + NS_TEST, NS_V, 1, n_null=NS_NULL)
+    args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
+    grid = np.logspace(-1, 8, 10)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_ENTRIES_FIT)
+    with LogLines("litcoder_core_torch.models.nested_cv",
+                  "voxel-sharded fit") as log:
+        m8, a8 = timed_fit(f"(a) mesh of {MESH_ENTRIES_FIT} x cuda:0", smi_line,
+                           *args, mesh=mesh)
+    print(f"  (a) {log.messages[0]}", flush=True)
+    check_metrics(m8, NS_V, grid, mb["solver_paths"])
+    dm = agreement("(a) mesh vs phase 8 (b)", a8, ab, m8, mb,
+                   MESH_SAME_SHARE, 1e-4)
+    if dm > 1e-5:
+        raise AssertionError(f"(a) median r moved by {dm}")
+    m1, a1 = timed_fit("(a) n_devices=1", smi_line, *args, n_devices=1)
+    check_metrics(m1, NS_V, grid, mb["solver_paths"])
+    agreement("(a) n_devices=1 vs phase 8 (b)", a1, ab, m1, mb, 1.0, 1e-6,
+              where_same=False)
+    del X, Y, args
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() == 1:
+        try:
+            make_mesh(2)
+        except RuntimeError as err:
+            print(f"  (a) make_mesh(2) on one card: RuntimeError: {err}",
+                  flush=True)
+        else:
+            raise AssertionError("make_mesh(2) built a mesh on one card")
+
+
+def mesh_trainers(asm, kv_path, workdir, smi_line, want):
+    """(b): phase 14 (a)-(b)'s trainers with the models on 4 entries.
+    Returns the kernel's launches of both trainers."""
+    from litcoder_core_torch.models import BandedRidgeModel, StackedRidgeModel
+    from litcoder_core_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_ENTRIES)
+    m_banded, m_stacked = want
+    launches = 0
+    for label, model, paths, ref, keys in (
+            ("mesh_banded",
+             BandedRidgeModel(seed=0, n_gammas=BANDED_N_GAMMAS,
+                              device="cuda", mesh=mesh),
+             _banded_paths("chol", "spectral"), m_banded,
+             ("best_alphas", "best_gammas")),
+            ("mesh_stacked",
+             StackedRidgeModel(seed=0, device="cuda", mesh=mesh),
+             {**STACKED_PATHS, "oof_refit": "pervoxel_chol"}, m_stacked,
+             ("best_alphas",))):
+        got, n, _ = spaces_trainer_run(label, asm, kv_path, model, workdir,
+                                       smi_line, paths)
+        launches += n
+        same = np.ones(N_VERTICES, bool)
+        for key in keys:
+            a, b = np.asarray(got[key]), np.asarray(ref[key])
+            axis = tuple(i for i in range(a.ndim) if a.shape[i] != N_VERTICES)
+            same &= np.all(a == b, axis=axis) if axis else a == b
+        dm = abs(got["median_score"] - ref["median_score"])
+        print(f"  (b) {label} vs phase 14: the same {', '.join(keys)} on "
+              f"{same.mean():.4%} of the voxels, |d median r| {dm:.3e} "
+              f"(bar 1e-4), solver_paths {got['solver_paths']}", flush=True)
+        if same.mean() < MESH_SAME_SHARE or dm > 1e-4:
+            raise AssertionError(f"(b) {label} disagrees with phase 14")
+    return launches
+
+
+def mesh_step(smi_line, want):
+    """(c): phase 10's 'auto' step on 4 entries."""
+    import torch
+
+    from litcoder_core_torch.parallel.mesh import make_mesh
+    from litcoder_core_torch.parallel.step import (
+        equal_size_folds,
+        make_nested_cv_step,
+    )
+
+    args = bench_problem(0)
+    folds = equal_size_folds(BENCH_T, BENCH_F, BENCH_CHUNK, seed=0)
+    grid = np.logspace(-1, 8, BENCH_A).astype(np.float32)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_ENTRIES)
+    step = make_nested_cv_step(mesh=mesh, device="cuda")
+
+    def run():
+        out = step(*args, grid, *folds)
+        torch.cuda.synchronize()
+        return out
+
+    with LogLines(STEP_LOGGER, "nested_cv_step:") as log:
+        run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = run()
+        walls.append(time.perf_counter() - t0)
+    widths = {tuple(s.shape) for s in out.weights.shards}
+    corr, _, alphas, _ = (f.gather("cuda").cpu().numpy() for f in out)
+    metrics = {"correlations": corr, "median_score": float(np.median(corr))}
+    print(f"  (c) {log.messages[0]}; walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (median "
+          f"{float(np.median(walls)):.4f}); weight shards {sorted(widths)}; "
+          f"median r {metrics['median_score']:.6f}, card: {smi_line}",
+          flush=True)
+    if widths != {(BENCH_D, N_VERTICES // MESH_ENTRIES)}:
+        raise AssertionError(f"(c) shards {widths}")
+    agreement("(c) mesh step vs phase 10 'auto'", alphas, want[0], metrics,
+              want[1], MESH_SAME_SHARE, 1e-5)
+    del args, out
+    torch.cuda.empty_cache()
+
+
+def cache_layers(path):
+    """{layer: features} of one activation-cache file."""
+    from litcoder_core_torch.utils.caches import LazyLayerCache
+
+    lazy = LazyLayerCache(path)
+    return {int(i): lazy.get_layer(int(i))
+            for i in lazy.get_metadata()["available_layers"]}
+
+
+def mesh_lm(lm_asm, workdir, smi_line, want):
+    """(d), language model: phase 12's trainer with the extractor on a
+    (2, 2) mesh, its cache a copy of phase 12's without two stories, so
+    those two are extracted tensor-parallel. Returns the launches."""
+    import copy
+    import glob
+    import shutil
+
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+    from litcoder_core_torch.utils.caches import LazyLayerCache
+
+    m_lm, rate = want
+    src = os.path.join(workdir, "lm_cache")
+    dst = os.path.join(workdir, "lm_tp_cache")
+    shutil.copytree(src, dst)
+    redo = set(lm_asm.stories[:MESH_LM_STORIES])
+    plain = {}
+    for path in glob.glob(os.path.join(dst, "*.npz")):
+        story = LazyLayerCache(path).get_metadata()["story"]
+        if story in redo:
+            plain[story] = cache_layers(os.path.join(
+                src, os.path.basename(path)))
+            os.remove(path)
+    if set(plain) != redo:
+        raise AssertionError(f"(d) phase 12's cache lacks {redo - set(plain)}")
+    model, _ = lm_model(GPT2_SMALL)
+    card_model = copy.deepcopy(model).to("cuda")
+    del model
+    mesh = make_lm_mesh(*MESH_LM_SHAPE, devices=["cuda:0"] * 4)
+    trainer, ex = lm_trainer(lm_asm, card_model, "cuda", workdir, "lm_tp",
+                             LM_LAYER, mesh=mesh)
+    stage = summed_stage_seconds(ex)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train(chunk_length=20, n_inner_folds=5)
+    wall = time.perf_counter() - t0
+    launches = lf.launches
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(ex.counts)
+    extract_s = stage.get("tokenize_s", 0.0) + stage.get("forward_total_s",
+                                                         0.0)
+    n_windows = sum(len(lm_asm.story_data[s].stimuli) for s in redo)
+    print(f"  (d) LM on a {MESH_LM_SHAPE} mesh: {counts['windows']} windows "
+          f"of {sorted(redo)} in {counts['chain_forwards']} chain and "
+          f"{counts['single_forwards']} single forwards, "
+          f"{counts['windows'] / extract_s:.1f} windows/s against phase "
+          f"12's unsharded {rate:.1f}; lanczos_fir launches {launches}",
+          flush=True)
+    if counts["windows"] != n_windows or launches != LM_STORIES:
+        raise AssertionError(f"(d) {counts['windows']} windows, {launches} "
+                             "launches")
+    for path in glob.glob(os.path.join(dst, "*.npz")):
+        story = LazyLayerCache(path).get_metadata()["story"]
+        if story in redo:
+            compare_layers(f"(d) story {story}, TP vs unsharded features",
+                           cache_layers(path), plain[story], MESH_TP_RTOL)
+    check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10), LM_PATHS)
+    report_path_run(metrics, wall, peak, smi_line, None)
+    same = np.asarray(metrics["best_alphas"]) == np.asarray(
+        m_lm["best_alphas"])
+    print(f"  (d) the trainer on the TP features vs phase 12: the same alpha "
+          f"on {same.mean():.4%} of the voxels, |d median r| "
+          f"{abs(metrics['median_score'] - m_lm['median_score']):.3e}",
+          flush=True)
+    if same.mean() < MESH_SAME_SHARE:
+        raise AssertionError("(d) the TP trainer's alphas differ")
+    return launches
+
+
+def mesh_speech(audio_path, workdir):
+    """(d), speech: phase 13's encoder on a (1, 2) mesh over the first
+    MESH_SPEECH_SECONDS of its audio, against the unsharded extractor."""
+    import copy
+
+    import torch
+    from scipy.io import wavfile
+
+    from litcoder_core_torch.features.speech_model import load_audio
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+    path = os.path.join(workdir, "speech_first_30s.wav")
+    wavfile.write(path, SPEECH_SR,
+                  load_audio(audio_path, SPEECH_SR)[:MESH_SPEECH_SECONDS
+                                                    * SPEECH_SR])
+    model, fe = speech_model({})
+    card_model = copy.deepcopy(model).to("cuda")
+    del model
+    feats, rates = [], []
+    for mesh in (None, make_lm_mesh(*MESH_SPEECH_SHAPE,
+                                    devices=["cuda:0"] * 2)):
+        ex = speech_extractor(card_model, fe, "cuda", SPEECH_CHUNK,
+                              SPEECH_CONTEXT, mesh=mesh)
+        ex.extract_all_layers(path)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, times = ex.extract_all_layers(path)
+        torch.cuda.synchronize()
+        rates.append(len(times) / (time.perf_counter() - t0))
+        feats.append((got, times))
+    (want, t_want), (got, t_got) = feats
+    if not np.array_equal(t_got, t_want):
+        raise AssertionError("(d) speech window times differ")
+    compare_layers(f"(d) speech on a {MESH_SPEECH_SHAPE} mesh, "
+                   f"{len(t_got)} windows, TP vs unsharded", got, want,
+                   MESH_TP_RTOL)
+    print(f"  (d) speech: {rates[1]:.1f} windows/s on the mesh against "
+          f"{rates[0]:.1f} unsharded", flush=True)
+
+
+def mesh_cli(cli_args, smi_line):
+    """(e): phase 15 (a)'s argv with --n_devices 1, then an extraction mesh
+    of two entries on one card."""
+    import torch
+
+    from litcoder_core_torch import cli
+
+    argv, m_cli = cli_args
+    got, launches = timed_main("(e) --n_devices 1", argv + ["--n_devices",
+                                                           "1"], smi_line)
+    dm = abs(got["median_score"] - m_cli["median_score"])
+    print(f"  (e) against phase 15 (a): same alphas "
+          f"{got['best_alphas'] == m_cli['best_alphas']}, |d median r| "
+          f"{dm:.3e}, solver_paths {got['solver_paths']}", flush=True)
+    if (got["best_alphas"] != m_cli["best_alphas"] or dm != 0.0
+            or got["solver_paths"] != m_cli["solver_paths"]):
+        raise AssertionError("(e) --n_devices 1 changed the fit")
+    if torch.cuda.device_count() == 1:
+        tp_argv = argv + ["--modality", "language_model", "--model_name",
+                          "gpt2", "--tp_data", "1", "--tp_model", "2"]
+        try:
+            cli.main(tp_argv)
+        except RuntimeError as err:
+            print(f"  (e) --tp_data 1 --tp_model 2 on one card: "
+                  f"RuntimeError: {err}", flush=True)
+        else:
+            raise AssertionError("(e) a 2-entry extraction mesh was built on "
+                                 "one card")
+    return launches
+
+
+def mesh_phase(asm, kv_path, lm_asm, workdir, smi_line, northstar_fit,
+               spaces_fits, step_auto, lm_run, audio_path, cli_args):
+    """Phase 16 (a)-(e). Returns the kernel's launches in its trainers."""
+    t0 = time.perf_counter()
+    mesh_northstar(smi_line, northstar_fit)
+    launches = mesh_trainers(asm, kv_path, workdir, smi_line, spaces_fits)
+    mesh_step(smi_line, step_auto)
+    launches += mesh_lm(lm_asm, workdir, smi_line, lm_run)
+    mesh_speech(audio_path, workdir)
+    launches += mesh_cli(cli_args, smi_line)
+    print(f"  phase 16 lanczos_fir launches {launches} ({N_STORIES} + "
+          f"{N_STORIES} + {LM_STORIES} + {N_STORIES}); phase 16 wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -3264,13 +3609,13 @@ def main() -> int:
         fused_full_cv_phase(smi_line)
 
         phase("8 north-star whole-brain fit, V=95556")
-        northstar_phase(smi_line)
+        northstar_fit = northstar_phase(smi_line)
 
         phase("9 eigh search at full width")
         eigh_search_phase(smi_line)
 
         phase("10 fused nested-CV step at full size")
-        bench_step_phase(smi_line)
+        step_auto = bench_step_phase(smi_line)
         step_full_width_phase(smi_line)
 
         phase("11 the other downsamplers at full size")
@@ -3278,18 +3623,26 @@ def main() -> int:
         average_trainer_phase(asm, kv_path, workdir, smi_line)
 
         phase("12 language-model trainer at full width")
-        record["launches_lm"], lm_asm = lm_phase(asm, workdir, smi_line)
+        record["launches_lm"], lm_asm, m_lm, lm_rate = lm_phase(
+            asm, workdir, smi_line)
 
         phase("13 README section 3 with speech features at full width")
-        record["launches_speech"] = speech_phase(workdir, smi_line)
+        record["launches_speech"], audio_path = speech_phase(workdir,
+                                                             smi_line)
 
         phase("14 README section 4's --banded fit at full width")
         record["launches_banded"], m_banded, m_stacked = banded_phase(
             asm, kv_path, workdir, smi_line)
 
         phase("15 README section 4's command line at full width")
-        record["launches_cli"] = cli_phase(asm, kv_path, lm_asm, m_banded,
-                                           m_stacked, workdir, smi_line)
+        record["launches_cli"], cli_args, m_cli = cli_phase(
+            asm, kv_path, lm_asm, m_banded, m_stacked, workdir, smi_line)
+
+        phase("16 the mesh paths at full width, meshes of cuda:0")
+        record["launches_mesh"] = mesh_phase(
+            asm, kv_path, lm_asm, workdir, smi_line, northstar_fit,
+            (m_banded, m_stacked), step_auto, (m_lm, lm_rate), audio_path,
+            (cli_args, m_cli))
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

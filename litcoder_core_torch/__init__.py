@@ -13,8 +13,8 @@ the JAX package's activation caches; speech comes as (features, times))
 and its TensorBoard, W&B or null logger with the brain plots, all ten
 Downsampler methods with FIR delays (Lanczos fused or two-stage, the others
 two-stage), both structuring modes, fit_nested_cv with every argument of
-the JAX fit but mesh/n_devices (every alpha-search path, voxel chunking,
-fast_scan, permutation significance), banded ridge, stacked regression and
+the JAX fit (every alpha-search path, voxel chunking, fast_scan,
+permutation significance, mesh/n_devices voxel sharding), banded ridge, stacked regression and
 variance partitioning over feature spaces (models.fit_banded_ridge,
 models.fit_stacked_ridge, models.variance_partitioning, fed by the
 trainer's concat_features=False), the fused step parallel.nested_cv_step,
@@ -22,8 +22,10 @@ load_assembly/save_assembly, the config-driven command line (cli.main,
 the `litcoder-torch` console script, and cli.run), its layer and grid
 sweeps (sweeps.run_layer_sweep, sweeps.run_grid_sweep), and the
 least-squares and scikit-learn models (models.LinearPredictivityModel,
-models.SklearnPredictivityModel). ROADMAP.md lists the rest: the mesh and
-n_devices sharding. Optional packages (transformers, tensorboard,
+models.SklearnPredictivityModel), and the scale-out layer (parallel: the
+1-D voxel mesh of the fits and the step, and the ('data', 'model') tensor-
+parallel mesh of the extractors; a mesh may repeat a device). Optional
+packages (transformers, tensorboard,
 matplotlib, seaborn, wandb, nibabel, nilearn, soundfile, scikit-learn) are
 imported only where they are used; pandas is not needed.
 """

@@ -15,10 +15,10 @@ or `python -m litcoder_core_torch.cli ...`.
 
 The flags are litcoder-tpu's, with the same defaults, choices and errors;
 `--device` (cuda, the default, or cpu) is the port's, and run(config)
-reads config['device'] ('cuda' when absent). Not ported yet (ROADMAP.md
-A15): an extraction mesh (--tp_data x --tp_model > 1, for the language
-model and speech) and --n_devices voxel sharding; both raise
-NotImplementedError.
+reads config['device'] ('cuda' when absent). --tp_data x --tp_model > 1
+builds one ('data', 'model') extraction mesh per run for the language-model
+and speech extractors; --n_devices shards the fit's voxel axis (on the CPU,
+n entries of the CPU).
 """
 
 import argparse
@@ -27,7 +27,6 @@ import logging
 from datetime import datetime
 from typing import Any, Dict, List
 
-from litcoder_core_torch.models.nested_cv import _not_ported
 from litcoder_core_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -69,14 +68,22 @@ TRIMMING_PARAMS = [
 
 
 def _build_mesh(config: Dict[str, Any]):
-    """None for single-device extraction (--tp_data x --tp_model <= 1);
-    a larger extraction mesh is not ported yet and raises."""
+    """Build the ('data', 'model') extraction mesh from --tp_data/--tp_model
+    on config['device'] (or return None for single-device extraction).
+    Cached on the config dict so every extractor of one run shares a single
+    mesh."""
     n_data = config.get("tp_data") or 1
     n_model = config.get("tp_model") or 1
     if n_data * n_model <= 1:
         return None
-    raise _not_ported(
-        f"the --tp_data {n_data} x --tp_model {n_model} extraction mesh")
+    if "_mesh" not in config:
+        from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+        config["_mesh"] = make_lm_mesh(n_data, n_model,
+                                       device=config.get("device", "cuda"))
+        logger.info("Feature-extraction mesh: data=%d, model=%d",
+                    n_data, n_model)
+    return config["_mesh"]
 
 
 def build_feature_config(modality: str, model_name: str,
@@ -97,9 +104,11 @@ def build_feature_config(modality: str, model_name: str,
             "dtype": config.get("feature_dtype", "float32"),
             "device": device,
         }
-        # Only the models that would shard check the mesh flags: --tp_*
-        # must not fail for wordrate or embeddings, which never use them.
-        _build_mesh(config)
+        # Mesh built lazily HERE (not for wordrate/embeddings, which never
+        # use it: --tp_* must not fail or silently no-op for those).
+        mesh = _build_mesh(config)
+        if mesh is not None:
+            out["mesh"] = mesh
     elif modality == "speech":
         out = {
             "chunk_size": config.get("chunk_size", 0.1),
@@ -110,7 +119,9 @@ def build_feature_config(modality: str, model_name: str,
             "dtype": config.get("feature_dtype", "float32"),
             "device": device,
         }
-        _build_mesh(config)
+        mesh = _build_mesh(config)
+        if mesh is not None:
+            out["mesh"] = mesh
     elif modality == "embeddings":
         out = {
             "vector_path": config.get("vector_path"),
@@ -419,11 +430,12 @@ def parse_args(argv=None):
                              "halves weight/activation memory traffic "
                              "(opt-in; features return float32 either way)")
     parser.add_argument("--tp_data", type=int, default=1,
-                        help="data-parallel extraction mesh axis (not "
-                             "ported yet: only 1)")
+                        help="data-parallel extraction mesh axis (batches "
+                             "shard across tp_data devices)")
     parser.add_argument("--tp_model", type=int, default=1,
-                        help="tensor-parallel extraction mesh axis (not "
-                             "ported yet: only 1)")
+                        help="tensor-parallel extraction mesh axis "
+                             "(LM/speech encoder params shard Megatron-"
+                             "style across tp_model devices)")
     parser.add_argument("--use_gpu", action="store_true",
                         help="Accepted for parity; --device picks the "
                              "device")
@@ -438,8 +450,10 @@ def parse_args(argv=None):
                              "nulls (autocorrelation-preserving, one-sided)")
     parser.add_argument("--n_permutations", type=int, default=1000)
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Voxel sharding of the ridge solve over this "
-                             "many devices (not ported yet: leave unset)")
+                        help="Shard the voxel axis of the ridge solve over "
+                             "this many devices (1-D mesh; with --device "
+                             "cpu, entries of the CPU). Default: single "
+                             "device")
     parser.add_argument("--cache_dir", type=str, required=True)
     parser.add_argument("--results_dir", type=str, default="results")
     # Logging

@@ -20,7 +20,11 @@ module with the same call surface) on `device`:
 - _PipelinedFetch keeps up to `pipeline_depth` pooled results in flight,
   each copied to pinned host memory on a side stream, so the host pads and
   enqueues the next batches while the card computes;
-- empty strings give zero vectors for every layer.
+- empty strings give zero vectors for every layer;
+- config['mesh'], a ('data', 'model') mesh from parallel.tp.make_lm_mesh:
+  the attention and MLP projections shard Megatron-style over 'model'
+  (parallel/tp.py), batch rows split over 'data' groups (padded with
+  all-zero-mask rows, which are dropped before pooling).
 
 fp32 forwards run with TF32 off (the parity default); dtype='bfloat16'
 runs the forward on a bf16 copy of the weights, made once, and returns
@@ -38,6 +42,11 @@ import numpy as np
 import torch
 
 from litcoder_core_torch.features.base import BaseFeatureExtractor
+from litcoder_core_torch.parallel.tp import (
+    check_tp_mesh,
+    shard_lm_params,
+    tp_forward,
+)
 from litcoder_core_torch.utils.device import matmul_conv_tf32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -186,12 +195,8 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
             raise ValueError(
                 f"backend must be 'auto' or 'torch', got {backend!r}")
         self.backend = "torch"
-        if config.get("mesh") is not None:
-            raise NotImplementedError(
-                "mesh-sharded extraction is not ported to litcoder_core_torch "
-                "yet (see ROADMAP.md, A15)"
-            )
         self.device = resolve_device(config.get("device", "cuda"))
+        self.mesh = check_tp_mesh(config.get("mesh"), self.device)
 
         self._model = config.get("model")
         self._tokenizer = config.get("tokenizer")
@@ -205,6 +210,12 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         if self.compute_dtype == "bfloat16":
             self._compute_model = copy.deepcopy(self._model).to(
                 torch.bfloat16)
+        # A ('data', 'model') mesh: one tensor-parallel copy per 'data'
+        # group, made from the compute model (cast BEFORE sharding, so a
+        # bf16 run holds bf16 shards).
+        self._tp_models = (None if self.mesh is None
+                           else shard_lm_params(self._compute_model,
+                                                self.mesh))
 
     # ------------------------------------------------------------------ setup
 
@@ -252,6 +263,12 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
 
     def _hidden_states(self, ids: torch.Tensor, mask: torch.Tensor):
         with torch.inference_mode(), matmul_conv_tf32(False):
+            if self._tp_models is not None:
+                # Rows pad to the 'data' extent with all-zero masks; the
+                # pad rows are dropped here, before any pooling reads them.
+                return tp_forward(self._tp_models, self.mesh, self.device,
+                                  {"input_ids": ids, "attention_mask": mask},
+                                  output_hidden_states=True)
             out = self._compute_model(input_ids=ids, attention_mask=mask,
                                       output_hidden_states=True)
         return out.hidden_states

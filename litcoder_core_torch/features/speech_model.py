@@ -16,7 +16,10 @@ Whisper model, or any injected module with the same call surface) on
 - Whisper runs through model.get_encoder(), as the JAX torch path does;
 - _PipelinedFetch keeps up to 4 pooled results in flight, copied to pinned
   host memory on a side stream, so the host preprocesses batch k+1 while
-  the card runs batch k.
+  the card runs batch k;
+- `mesh`, a ('data', 'model') mesh from parallel.tp.make_lm_mesh: the
+  encoder's projections shard Megatron-style over 'model' (parallel/tp.py)
+  and window batches split over 'data' groups.
 
 Forwards run in fp32 with TF32 off for matmuls and cuDNN convolutions (the
 parity default); dtype='bfloat16' runs them on a bf16 copy of the weights,
@@ -35,6 +38,11 @@ import torch
 
 from litcoder_core_torch.features.base import BaseFeatureExtractor
 from litcoder_core_torch.features.language_model import _PipelinedFetch
+from litcoder_core_torch.parallel.tp import (
+    check_tp_mesh,
+    shard_lm_params,
+    tp_forward,
+)
 from litcoder_core_torch.utils.device import matmul_conv_tf32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -120,10 +128,6 @@ class SpeechFeatureExtractor(BaseFeatureExtractor):
         if backend not in ("auto", "torch"):
             raise ValueError(
                 f"backend must be 'auto' or 'torch', got {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded extraction is not ported to litcoder_core_torch "
-                "yet (see ROADMAP.md, A15)")
         self.config = {
             "model_name": model_name, "chunk_size": chunk_size,
             "context_size": context_size, "pool": pool,
@@ -139,6 +143,7 @@ class SpeechFeatureExtractor(BaseFeatureExtractor):
         self.batch_size = int(batch_size)
         self.compute_dtype = dtype
         self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = check_tp_mesh(mesh, self.device)
         self.counts = {"windows": 0, "forwards": 0}
         self.last_stage_seconds = {}
 
@@ -161,6 +166,14 @@ class SpeechFeatureExtractor(BaseFeatureExtractor):
         self._encoder = (self._compute_model.get_encoder()
                          if self.model_type == "whisper"
                          else self._compute_model)
+        # A ('data', 'model') mesh: one tensor-parallel copy of the model
+        # per 'data' group (cast BEFORE sharding), windows split over the
+        # groups with silent pad windows that are dropped before pooling.
+        self._tp_encoders = None
+        if self.mesh is not None:
+            self._tp_encoders = [
+                m.get_encoder() if self.model_type == "whisper" else m
+                for m in shard_lm_params(self._compute_model, self.mesh)]
         self._input_dtype = (torch.bfloat16 if self.compute_dtype
                              == "bfloat16" else torch.float32)
 
@@ -213,8 +226,14 @@ class SpeechFeatureExtractor(BaseFeatureExtractor):
             x = x.pin_memory().to(self.device, non_blocking=True)
         x = x.to(self._input_dtype)
         with torch.inference_mode(), matmul_conv_tf32(False):
-            hidden = self._encoder(**{self._forward_key: x},
-                                   output_hidden_states=True).hidden_states
+            if self._tp_encoders is not None:
+                hidden = tp_forward(self._tp_encoders, self.mesh, self.device,
+                                    {self._forward_key: x},
+                                    output_hidden_states=True)
+            else:
+                hidden = self._encoder(**{self._forward_key: x},
+                                       output_hidden_states=True
+                                       ).hidden_states
             if self.pool == "last":
                 return torch.stack([h[:, -1, :].float() for h in hidden])
             return torch.stack([h.float().mean(dim=1) for h in hidden])

@@ -31,8 +31,8 @@ group against the gathered columns of s * X^T Y) and 'spectral' otherwise.
 All products run in fp32 with TF32 off (the JAX package's
 Precision.HIGHEST); `fast_scan` turns TF32 on around the scan's V-scaled
 products only, and the refit always runs in fp32. The host computes the
-float64 p-values and BH-FDR. Not ported (ROADMAP.md A15): `mesh`/
-`n_devices` voxel sharding, which raises NotImplementedError.
+float64 p-values and BH-FDR. `mesh`/`n_devices` shard the scan's voxel
+axis over a 1-D device mesh (parallel/mesh.py).
 """
 
 import logging
@@ -47,7 +47,6 @@ from litcoder_core_torch.models.nested_cv import (
     _cholesky_solve_all,
     _fast_scan_accept,
     _folds_cover_all_rows,
-    _not_ported,
     _permutation_offsets,
     _score_alphas_from_factors,
     _score_fold_voxel_chunks,
@@ -123,7 +122,8 @@ def _score_gammas(Xs, Y, gammas, inner_splits, alphas, normalpha: bool,
                   voxel_chunk: Optional[int] = None,
                   Xc: torch.Tensor = None,
                   G_precomputed: Optional[torch.Tensor] = None,
-                  XtY_precomputed: Optional[torch.Tensor] = None
+                  XtY_precomputed: Optional[torch.Tensor] = None,
+                  total_voxels: Optional[int] = None
                   ) -> torch.Tensor:
     """(G, A, V) mean inner-fold scores for every gamma candidate.
 
@@ -131,7 +131,9 @@ def _score_gammas(Xs, Y, gammas, inner_splits, alphas, normalpha: bool,
     on the fit's device. Y is a tensor on that device, or a host numpy
     array in host-streaming mode, which needs `XtY_precomputed`. Folds are
     grouped by (train, val) shape and each group's mean is weighted by its
-    size, as in the JAX package.
+    size, as in the JAX package. `total_voxels` (default Y's width) is the
+    voxel count the chol scan's solve side follows: a voxel shard's whole
+    axis, as the JAX package's sharded program sees it.
     """
     widths = [X.shape[1] for X in Xs]
     dev = Xc.device
@@ -238,7 +240,7 @@ def _score_gammas(Xs, Y, gammas, inner_splits, alphas, normalpha: bool,
     Y = as_f32(Y, dev)
     return _grouped(lambda folds: _score_gammas_fast(
         Xc, Y, scales, folds, alphas_t, normalpha, use_corr, singcutoff,
-        scan, fast_scan, complement, G_all, XtY_all, chunk))
+        scan, fast_scan, complement, G_all, XtY_all, chunk, total_voxels))
 
 
 def _chol_L(Gg: torch.Tensor, na) -> torch.Tensor:
@@ -468,7 +470,8 @@ def _score_gammas_fast(Xc: torch.Tensor, Y: torch.Tensor,
                        complement: bool = False,
                        G_all: Optional[torch.Tensor] = None,
                        XtY_all: Optional[torch.Tensor] = None,
-                       chunk: Optional[int] = None) -> torch.Tensor:
+                       chunk: Optional[int] = None,
+                       total_voxels: Optional[int] = None) -> torch.Tensor:
     """(G, A, V) mean scores over `folds` with shared per-fold Grams and
     cross-products; each gamma only rescales them (G_g = s s^T * G,
     X_g^T Y = s * X^T Y).
@@ -516,7 +519,8 @@ def _score_gammas_fast(Xc: torch.Tensor, Y: torch.Tensor,
                         [one_chunk(c0, c1)
                          for c0, c1 in _voxel_chunks(Y.shape[1], chunk)],
                         dim=-1))
-                elif Y.shape[1] < Xva.shape[0]:               # voxel side
+                elif (Y.shape[1] if total_voxels is None
+                      else total_voxels) < Xva.shape[0]:      # voxel side
                     zP = zscore(Yva, dim=0)
                     out = []
                     for Z in _cholesky_solve_all(L, s[:, None] * XtY):
@@ -635,7 +639,11 @@ def fit_banded_ridge(
             voxel chunks (chol scan only; ignored with a warning otherwise).
         return_weights: False returns None for the weights (the test set is
             still scored).
-        mesh / n_devices: not ported; they raise NotImplementedError.
+        mesh / n_devices: a 1-D voxel mesh (or a device count to build
+            one; n entries of the CPU for a CPU fit): the (gamma, alpha)
+            scan runs shard by shard on zero-padded voxel shards and
+            replaces voxel chunking; the fast-scan calibration, the refit
+            (spectral under a mesh) and the test scoring read the whole Y.
 
     Returns:
         (metrics, weights (sum D_b, V) or None, best_alphas (V,),
@@ -684,9 +692,14 @@ def fit_banded_ridge(
                     f"test space {b} has {Xt.shape[1]} features; train "
                     f"space has {Xb.shape[1]}"
                 )
-    if mesh is not None or n_devices is not None:
-        raise _not_ported("mesh/n_devices voxel sharding")
+    from litcoder_core_torch.parallel.mesh import (
+        replicate,
+        resolve_voxel_mesh,
+        shard_padded,
+    )
+
     dev = resolve_device(device)
+    vox_mesh = resolve_voxel_mesh(mesh, n_devices, "fit_banded_ridge", dev)
     V = Y.shape[1]
     D_total = sum(X.shape[1] for X in Xs)
 
@@ -695,7 +708,8 @@ def fit_banded_ridge(
     # (D, V) cross-product built once from column chunks (the refit reuses
     # it) and per fold the val rows.
     stream_host = bool(
-        voxel_chunk_size and _is_host(Y, dev) and V > int(voxel_chunk_size)
+        voxel_chunk_size and vox_mesh is None and _is_host(Y, dev)
+        and V > int(voxel_chunk_size)
         and method in ("auto", "chol") and normalpha
         and singcutoff <= 1e-10
         and alphas.size and float(alphas.min()) >= 0.03
@@ -709,7 +723,22 @@ def fit_banded_ridge(
             Y_j.nbytes / 2**30,
         )
     else:
+        # Y_j stays whole on the fit's device under a mesh too: the
+        # calibration scan, the spectral refit and the test scoring read it.
         Y_j = as_f32(Y, dev)
+    Y_shards = None
+    if vox_mesh is not None:
+        Y_shards = shard_padded(Y_j, vox_mesh).shards
+        logger.info(
+            "banded voxel-sharded scan: %d voxels (+%d pad) over %d devices",
+            V, sum(y.shape[1] for y in Y_shards) - V, vox_mesh.size,
+        )
+        if voxel_chunk_size:
+            logger.info(
+                "mesh sharding replaces voxel chunking; voxel_chunk_size "
+                "ignored (each device holds 1/%d of the voxel axis)",
+                vox_mesh.size,
+            )
 
     gammas = sample_gammas(n_bands, n_gammas, seed=seed)
     inner_splits = create_folds(T, folding_type, n_inner_folds, chunk_length,
@@ -717,10 +746,13 @@ def fit_banded_ridge(
 
     # Cholesky refit gate (the chol scan's conditions on a tall design),
     # decided before the scan so both share the (D, D) Gram.
+    # With a voxel-sharded Y the refit's (D, V) X^T Y would be sharded too
+    # and each (gamma, alpha) group would gather columns across shards:
+    # mesh fits keep the spectral refit, as the JAX package's do.
     chol_refit = bool(
         method in ("auto", "chol") and normalpha and singcutoff <= 1e-10
         and alphas.size and float(alphas.min()) >= 0.03
-        and T >= D_total
+        and T >= D_total and vox_mesh is None
     )
     Xc = torch.cat([as_f32(X, dev) for X in Xs], dim=1)
     G_shared = Xc.T @ Xc if chol_refit else None
@@ -733,6 +765,18 @@ def fit_banded_ridge(
 
     def _scan(Y_in, fast: bool):
         main = Y_in is Y_j
+        if main and Y_shards is not None:
+            # Shard by shard on each shard's device (Xc replicated once
+            # per device); the scores meet on the fit's device and the
+            # pad columns go before the argmax.
+            Xc_rep = replicate(Xc, vox_mesh)
+            total = sum(y.shape[1] for y in Y_shards)
+            parts = [_score_gammas(
+                Xs, y, gammas, inner_splits, alphas, normalpha, use_corr,
+                singcutoff, method, paths, fast_scan=fast,
+                Xc=Xc_rep[y.device], total_voxels=total)
+                for y in Y_shards]
+            return torch.cat([p.to(dev) for p in parts], dim=-1)[..., :V]
         return _score_gammas(
             Xs, Y_in, gammas, inner_splits, alphas, normalpha, use_corr,
             singcutoff, method, paths, fast_scan=fast,
@@ -881,7 +925,7 @@ def fit_banded_ridge(
 
 class BandedRidgeModel:
     """Object API over fit_banded_ridge on `device` (the JAX package's
-    BandedRidgeModel; `mesh`/`n_devices` raise NotImplementedError)."""
+    BandedRidgeModel); `mesh`/`n_devices` shard the scan's voxel axis."""
 
     def __init__(self, model_name: str = "banded_ridge", seed: int = 0,
                  n_gammas: int = 10, mesh=None,

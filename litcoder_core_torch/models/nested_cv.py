@@ -34,8 +34,15 @@ fp32, and the fit restores the caller's TF32 setting when it returns.
 circular-shift permutation p-values whose offsets each fold draws once.
 The host computes float64 p-values, Fisher combination and BH-FDR.
 
-Not ported (ROADMAP.md): `mesh`/`n_devices` voxel sharding, which raises
-NotImplementedError.
+`mesh`/`n_devices` shard the voxel axis over a 1-D device mesh
+(parallel/mesh.py): the responses pad with zero columns to a multiple of
+the mesh size and split into one shard per mesh entry, the stimuli
+replicate per distinct device, and every columnwise stage runs shard by
+shard on its device. What reads the whole voxel axis (the argmax inputs,
+single_alpha's mean, the fast_scan guard's calibration voxels, on the
+padded axis as in the JAX package) meets on the first shard's device; the
+pad is stripped before the host statistics. A mesh replaces voxel
+chunking.
 """
 
 import logging
@@ -77,13 +84,6 @@ logger = logging.getLogger(__name__)
 Metrics = Dict[str, Union[float, List[float], List[bool]]]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to litcoder_core_torch yet (see ROADMAP.md, "
-        "queue A, A15)"
-    )
-
-
 def _voxel_chunks(n_voxels: int, chunk: Optional[int]):
     """(lo, hi) column ranges of `chunk` voxels (one range when None)."""
     if chunk is None or chunk >= n_voxels:
@@ -99,6 +99,50 @@ def _full_and_tail(call, n_voxels: int, chunk: Optional[int]) -> torch.Tensor:
     such hazard, and the tail is just the last chunk.)"""
     parts = [call(lo, hi) for lo, hi in _voxel_chunks(n_voxels, chunk)]
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
+def _shard_fit_inputs(X: torch.Tensor, targets, vox_mesh):
+    """(X replicas, one per shard, shards of the zero-padded targets): the
+    targets pad to a multiple of the mesh size and split on the voxel axis
+    (a numpy array goes to the devices block by block), X replicates once
+    per distinct device."""
+    # Imported here: litcoder_core_torch.parallel imports this module.
+    from litcoder_core_torch.parallel.mesh import replicate, shard_padded
+
+    shards = shard_padded(targets, vox_mesh).shards
+    X_rep = replicate(X, vox_mesh)
+    return [X_rep[y.device] for y in shards], shards
+
+
+def _as_parts(X, Y):
+    """(X parts, Y parts): the voxel axis as a list of column blocks, each
+    with the X it is fitted with. A tensor Y is one block; a voxel-sharded
+    fit passes its shards (each on its device) and their X replicas."""
+    if isinstance(Y, (list, tuple)):
+        return list(X), list(Y)
+    return [X], [Y]
+
+
+def _cat_parts(parts) -> torch.Tensor:
+    """Per-block results (..., V_i) concatenated on the first one's device
+    (the gather of a voxel-sharded fit; one block is returned as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=-1)
+
+
+def _take_columns(blocks, idx: np.ndarray) -> torch.Tensor:
+    """Columns `idx` (global voxel indices, ascending) of a list of column
+    blocks, gathered on the first block's device."""
+    out, lo = [], 0
+    for b in blocks:
+        hi = lo + b.shape[-1]
+        sel = idx[(idx >= lo) & (idx < hi)] - lo
+        if sel.size:
+            out.append(b[..., torch.as_tensor(sel, device=b.device)])
+        lo = hi
+    return _cat_parts(out)
 
 
 def _folds_cover_all_rows(fold_splits, n_rows: int) -> bool:
@@ -428,11 +472,16 @@ def _find_best_alphas_dual(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                            alphas: torch.Tensor, normalpha: bool,
                            use_corr: bool,
                            voxel_chunk_size: Optional[int] = None,
-                           fast_scan: bool = False) -> torch.Tensor:
+                           fast_scan: bool = False,
+                           total_voxels: Optional[int] = None
+                           ) -> torch.Tensor:
     """(A, V) mean inner-fold scores of the dual search: one K = X X^T, per
-    fold kernel slices and one Cholesky per alpha, no eigendecomposition."""
+    fold kernel slices and one Cholesky per alpha, no eigendecomposition.
+    The solve side follows `total_voxels` (a voxel shard's whole axis, as
+    the JAX package's sharded program sees it; default Y's width)."""
     dev = X.device
     n_voxels = Y.shape[1]
+    total = n_voxels if total_voxels is None else total_voxels
     whole = voxel_chunk_size is None or voxel_chunk_size >= n_voxels
     K_full = _full_kernel(X)
     corr_sum = torch.zeros((alphas.shape[0], n_voxels), dtype=torch.float32,
@@ -440,7 +489,7 @@ def _find_best_alphas_dual(X: torch.Tensor, Y: torch.Tensor, fold_splits,
     for train_idx, val_idx in fold_splits:
         tr = torch.as_tensor(np.asarray(train_idx), device=dev)
         va = torch.as_tensor(np.asarray(val_idx), device=dev)
-        if whole and n_voxels < len(val_idx):
+        if whole and total < len(val_idx):
             corr_sum += _score_fold_dual_voxel_side(K_full, Y, tr, va, alphas,
                                                     normalpha, use_corr,
                                                     fast_scan)
@@ -472,11 +521,12 @@ def _mean_fold_scores(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                       alphas: np.ndarray, normalpha: bool, use_corr: bool,
                       singcutoff: float, voxel_chunk_size: Optional[int],
                       method: str, fast_scan: bool,
-                      paths: Dict[str, str]) -> torch.Tensor:
+                      paths: Dict[str, str],
+                      total_voxels: Optional[int] = None) -> torch.Tensor:
     """(A, V) mean inner-fold scores on the first eligible search path, in
     the JAX package's order: Cholesky, dual, complement-gram eigh (equal
     partition-union folds), per-fold spectral states (equal shapes), the
-    per-fold loop."""
+    per-fold loop. `total_voxels`: see _find_best_alphas_dual."""
     dev = X.device
     n_voxels = Y.shape[1]
     alphas_t = torch.as_tensor(alphas, device=dev)
@@ -501,7 +551,8 @@ def _mean_fold_scores(X: torch.Tensor, Y: torch.Tensor, fold_splits,
                     "eigensolve-free, wide folds)")
         paths["alpha_search"] = "dual"
         return _find_best_alphas_dual(X, Y, fold_splits, alphas_t, normalpha,
-                                      use_corr, voxel_chunk_size, fast_scan)
+                                      use_corr, voxel_chunk_size, fast_scan,
+                                      total_voxels)
     if (len(shapes) == 1 and resolved == "eigh"
             and _folds_partition_union(fold_splits)):
         logger.info(
@@ -601,27 +652,33 @@ def _find_best_alphas(X: torch.Tensor, Y: torch.Tensor, fold_splits,
     argmax. fast_scan: False (fp32 scan), True (TF32 scan products), or
     'auto' (the TF32 scan over every voxel, accepted only if its picks on
     a calibration subset agree with an fp32 scan of that subset; otherwise
-    the whole search reruns in fp32)."""
+    the whole search reruns in fp32). X and Y may be per-shard lists (see
+    _as_parts): the scores of every shard meet on the first shard's device
+    before the argmax, the calibration columns too, so single_alpha's mean
+    and the guard see the whole voxel axis."""
     search = (fold_splits, alphas, normalpha, use_corr, singcutoff)
+    Xp, Yp = _as_parts(X, Y)
+    total = sum(y.shape[1] for y in Yp)
+
+    def scores(fast: bool) -> torch.Tensor:
+        return _cat_parts([
+            _mean_fold_scores(x, y, *search, voxel_chunk_size, method, fast,
+                              paths, total) for x, y in zip(Xp, Yp)])
+
     if fast_scan != "auto":
         paths["fast_scan"] = "bf16" if fast_scan else "off"
-        mean_corrs = _mean_fold_scores(X, Y, *search, voxel_chunk_size,
-                                       method, bool(fast_scan), paths)
-        return _select_best_alphas(mean_corrs, alphas, single_alpha)
-    mc_fast = _mean_fold_scores(X, Y, *search, voxel_chunk_size, method,
-                                True, paths)
-    calib = _calib_voxels(Y.shape[1])
-    mc_cal = _mean_fold_scores(
-        X, Y[:, torch.as_tensor(calib, device=Y.device)], *search, None,
-        method, False, paths)
+        return _select_best_alphas(scores(bool(fast_scan)), alphas,
+                                   single_alpha)
+    mc_fast = scores(True)
+    calib = _calib_voxels(mc_fast.shape[1])
+    mc_cal = _mean_fold_scores(Xp[0], _take_columns(Yp, calib), *search,
+                               None, method, False, paths)
     if _fast_scan_accept(mc_fast, mc_cal, calib):
         paths["fast_scan"] = "auto_accepted"
         return _select_best_alphas(mc_fast, alphas, single_alpha)
     paths["fast_scan"] = "auto_rejected"
     del mc_fast
-    mean_corrs = _mean_fold_scores(X, Y, *search, voxel_chunk_size, method,
-                                   False, paths)
-    return _select_best_alphas(mean_corrs, alphas, single_alpha)
+    return _select_best_alphas(scores(False), alphas, single_alpha)
 
 
 def _select_best_alphas(mean_corrs: torch.Tensor, alphas: np.ndarray,
@@ -677,7 +734,22 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
     perm_offsets the permutation test (one-sided on r).
 
     'chol'/'dual' are search methods; the refit factors whichever side of
-    X_train is smaller ('auto'), other methods factor as asked."""
+    X_train is smaller ('auto'), other methods factor as asked. Per-shard
+    lists (see _as_parts) are refitted shard by shard, on the host after."""
+    Xp, Yp = _as_parts(X_train, Y_train)
+    Xtp, Ytp = _as_parts(X_test, Y_test)
+    if len(Yp) > 1:
+        bounds = np.cumsum([0] + [y.shape[1] for y in Yp])
+        outs = [_fit_and_score(x, y, xt, yt, valphas[lo:hi], normalpha,
+                               singcutoff, voxel_chunk_size, method,
+                               return_weights, perm_offsets)
+                for x, y, xt, yt, lo, hi in zip(Xp, Yp, Xtp, Ytp, bounds[:-1],
+                                                bounds[1:])]
+        return ((np.concatenate([o[0] for o in outs], axis=1)
+                 if return_weights else None),
+                np.concatenate([o[1] for o in outs]),
+                np.concatenate([o[2] for o in outs]))
+    X_train, Y_train, X_test, Y_test = Xp[0], Yp[0], Xtp[0], Ytp[0]
     svd_method = "auto" if method in ("chol", "dual") else method
     svd = ridge_svd(X_train, None, singcutoff=singcutoff, method=svd_method)
     nalphas = torch.as_tensor(valphas, dtype=torch.float32,
@@ -861,8 +933,7 @@ def _inner_splits_per_fold(outer_splits, inner_splits, groups,
     return per_fold
 
 
-def _fused_outer_fold(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
-                      XtY_full: torch.Tensor, train_idx, test_idx,
+def _fused_outer_fold(X, Y, G_full, XtY_full, train_idx, test_idx,
                       inner_splits, alphas: np.ndarray, single_alpha: bool,
                       normalpha: bool, use_corr: bool, singcutoff: float,
                       return_weights: bool,
@@ -875,55 +946,78 @@ def _fused_outer_fold(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
     permutation p-values or None) of one outer fold on the fused route. Its
     (D, V) G_tr/XtY_tr are locals, freed on return, before the next fold's
     downdate. With a voxel_chunk_size the downdate, the inner scoring and
-    the refit stream voxel chunks; fast_scan='auto'
-    calibrates this fold's TF32 scan on its own."""
-    dev = X.device
+    the refit stream voxel chunks; fast_scan='auto' calibrates this fold's
+    TF32 scan on its own. X, Y, G_full and XtY_full may be per-shard lists
+    (see _as_parts): each shard is downdated, scored and refitted on its
+    device, and the scores meet before the argmax."""
+    Xp, Yp = _as_parts(X, Y)
+    Gp, XtYp = _as_parts(G_full, XtY_full)
     tr_np = np.asarray(train_idx)
-    te = torch.as_tensor(np.asarray(test_idx), device=dev)
-    n_vox = Y.shape[1]
-    G_tr, XtY_tr = _downdate_outer(X, Y, G_full, XtY_full, te,
-                                   voxel_chunk_size)
     inner_union = np.unique(np.concatenate(
         [np.concatenate([t, v]) for t, v in inner_splits]
     ))
     in_leftover = np.setdiff1d(np.arange(len(tr_np)), inner_union,
                                assume_unique=True)
-    lo_g = torch.as_tensor(tr_np[in_leftover], device=dev)
-    alphas_t = torch.as_tensor(alphas, device=dev)
-    va_gs = [torch.as_tensor(tr_np[np.asarray(iva)], device=dev)
-             for _itr, iva in inner_splits]
+    shards = []
+    for x, y, g, xty in zip(Xp, Yp, Gp, XtYp):
+        dev = x.device
+        te = torch.as_tensor(np.asarray(test_idx), device=dev)
+        G_tr, XtY_tr = _downdate_outer(x, y, g, xty, te, voxel_chunk_size)
+        shards.append(dict(
+            X=x, Y=y, te=te, G_tr=G_tr, XtY_tr=XtY_tr,
+            lo_g=torch.as_tensor(tr_np[in_leftover], device=dev),
+            alphas=torch.as_tensor(alphas, device=dev),
+            va_gs=[torch.as_tensor(tr_np[np.asarray(iva)], device=dev)
+                   for _itr, iva in inner_splits]))
 
-    def inner_scores(Yf, XtYf, fs):
+    def inner_scores(sh, Yf, XtYf, fs):
         acc = 0
-        for va_g in va_gs:
+        for va_g in sh["va_gs"]:
             acc = acc + _score_inner_fold_from_gram(
-                X, Yf, va_g, lo_g, G_tr, XtYf, alphas_t, normalpha, use_corr,
-                fs, voxel_chunk_size)
-        return acc / len(va_gs)
+                sh["X"], Yf, va_g, sh["lo_g"], sh["G_tr"], XtYf,
+                sh["alphas"], normalpha, use_corr, fs, voxel_chunk_size)
+        return acc / len(sh["va_gs"])
 
-    mean_corrs = inner_scores(Y, XtY_tr, bool(fast_scan))
+    def all_scores(fs):
+        return _cat_parts([inner_scores(sh, sh["Y"], sh["XtY_tr"], fs)
+                           for sh in shards])
+
+    mean_corrs = all_scores(bool(fast_scan))
     if fast_scan == "auto":
         # The fold's calibration: its downdated XtY restricted to the
         # calibration columns (every op is columnwise).
-        calib = _calib_voxels(n_vox)
-        cal = torch.as_tensor(calib, device=dev)
-        mc_cal = inner_scores(Y[:, cal], XtY_tr[:, cal], False)
+        calib = _calib_voxels(mean_corrs.shape[1])
+        mc_cal = inner_scores(
+            shards[0], _take_columns([sh["Y"] for sh in shards], calib),
+            _take_columns([sh["XtY_tr"] for sh in shards], calib), False)
         if _fast_scan_accept(mean_corrs, mc_cal, calib,
                              label=f" (fused full-CV fold {fold_idx + 1})"):
             paths["fast_scan"] = "auto_accepted"
         else:
             paths["fast_scan"] = "auto_rejected"
-            mean_corrs = inner_scores(Y, XtY_tr, False)
+            mean_corrs = all_scores(False)
     best_valphas = _select_best_alphas(mean_corrs, alphas, single_alpha)
     del mean_corrs
     # The refit uses the whole outer-train Gram/XtY: inner-leftover rows are
     # training rows of this fold.
-    valphas = torch.as_tensor(best_valphas, device=dev)
-    wt, corr, perm_p = _refit_score_from_gram(
-        G_tr, XtY_tr, X[te], Y, te, valphas, singcutoff, normalpha,
-        return_weights, perm_offsets, voxel_chunk_size)
-    return (best_valphas, wt, to_numpy(corr),
-            None if perm_p is None else to_numpy(perm_p).astype(np.float64))
+    wts, corrs, perm_ps = [], [], []
+    lo = 0
+    for sh in shards:
+        hi = lo + sh["Y"].shape[1]
+        wt, corr, perm_p = _refit_score_from_gram(
+            sh["G_tr"], sh["XtY_tr"], sh["X"][sh["te"]], sh["Y"], sh["te"],
+            torch.as_tensor(best_valphas[lo:hi], device=sh["X"].device),
+            singcutoff, normalpha, return_weights, perm_offsets,
+            voxel_chunk_size)
+        wts.append(wt)
+        corrs.append(to_numpy(corr))
+        perm_ps.append(None if perm_p is None else to_numpy(perm_p))
+        lo = hi
+    return (best_valphas,
+            np.concatenate(wts, axis=1) if return_weights else None,
+            np.concatenate(corrs),
+            None if perm_offsets is None
+            else np.concatenate(perm_ps).astype(np.float64))
 
 
 # The fit runs in full fp32 (the JAX package's Precision.HIGHEST) and gives
@@ -974,7 +1068,10 @@ def fit_nested_cv(
     products with TF32; `significance='permutation'` gives one-sided
     circular-shift p-values from `n_permutations` shifts per fold, floored
     at 1/(n_permutations + 1), and adds metrics['significance_method'].
-    `mesh`/`n_devices` are not ported and raise NotImplementedError.
+    `mesh`/`n_devices` (a 1-D voxel Mesh, or a device count: the first n
+    cards, or n entries of the CPU for a CPU fit) shard the voxel axis and
+    replace voxel chunking; the log says "voxel-sharded fit: V voxels (+P
+    pad) over N devices".
 
     Returns:
         (metrics, weights (n_features, n_voxels) or None, best_alphas (V,)),
@@ -996,45 +1093,83 @@ def fit_nested_cv(
         raise ValueError(
             f"fast_scan must be True, False or 'auto', got {fast_scan!r}"
         )
-    if mesh is not None or n_devices is not None:
-        raise _not_ported("mesh/n_devices voxel sharding")
+    from litcoder_core_torch.parallel.mesh import resolve_voxel_mesh
 
     dev = resolve_device(device)
+    vox_mesh = resolve_voxel_mesh(mesh, n_devices, "fit_nested_cv", dev)
     n_perm = n_permutations if significance == "permutation" else 0
     paths: Dict[str, str] = {}
     if alphas is None:
         alphas = np.logspace(-1, 8, 10)
     alphas = np.asarray(alphas, np.float32)
+    normalize = normalize_features or normalize_targets
+
+    X = as_f32(features, dev)
+    n_voxels_orig = targets.shape[1]
+    if vox_mesh is None:
+        Y = as_f32(targets, dev)
+    else:
+        if voxel_chunk_size is not None:
+            logger.info(
+                "mesh sharding replaces voxel chunking (per-device memory "
+                "is already V/%d); ignoring voxel_chunk_size=%d",
+                vox_mesh.size, voxel_chunk_size,
+            )
+            voxel_chunk_size = None
+        X, Y = _shard_fit_inputs(X, targets, vox_mesh)
+        logger.info(
+            "voxel-sharded fit: %d voxels (+%d pad) over %d devices",
+            n_voxels_orig, sum(y.shape[1] for y in Y) - n_voxels_orig,
+            vox_mesh.size,
+        )
     search = dict(alphas=alphas, single_alpha=single_alpha,
                   normalpha=normalpha, use_corr=use_corr,
                   singcutoff=singcutoff, voxel_chunk_size=voxel_chunk_size,
                   method=method, fast_scan=fast_scan, paths=paths)
-    normalize = normalize_features or normalize_targets
+    Xp, Yp = _as_parts(X, Y)
 
-    X = as_f32(features, dev)
-    Y = as_f32(targets, dev)
+    def strip(*arrays):
+        # The sharding pad goes BEFORE any decision statistic: padded zero
+        # columns carry p=1 and would move the BH threshold.
+        return [None if a is None else a[..., :n_voxels_orig]
+                for a in arrays]
+
+    def normalized(parts):
+        """Per-shard (X_train, y_train, X_te, y_te), z-scored with the
+        training statistics when asked (columnwise in V)."""
+        out = []
+        for x_tr, y_tr, x_te, y_te in parts:
+            if normalize:
+                normalizer = DataNormalizer(normalize_features,
+                                            normalize_targets)
+                x_tr, y_tr = normalizer.fit_transform(x_tr, y_tr)
+                x_te, y_te = normalizer.transform(x_te, y_te)
+            out.append((x_tr, y_tr, x_te, y_te))
+        return [list(t) for t in zip(*out)]
 
     if X_test is not None and y_test is not None:
         logger.info("Running in train-test mode with provided test set")
         paths["mode"] = "train_test"
         X_te = as_f32(X_test, dev)
-        Y_te = as_f32(y_test, dev)
-        if normalize:
-            normalizer = DataNormalizer(normalize_features, normalize_targets)
-            X, Y = normalizer.fit_transform(X, Y)
-            X_te, Y_te = normalizer.transform(X_te, Y_te)
+        if vox_mesh is None:
+            Xtp, Ytp = [X_te], [as_f32(y_test, dev)]
+        else:
+            Xtp, Ytp = _shard_fit_inputs(X_te, y_test, vox_mesh)
+        Xp, Yp, Xtp, Ytp = normalized(zip(Xp, Yp, Xtp, Ytp))
         if inner_splits is None:
-            inner_splits = create_folds(X.shape[0], folding_type,
+            inner_splits = create_folds(Xp[0].shape[0], folding_type,
                                         n_inner_folds, chunk_length, None,
                                         groups, seed=seed)
-        best_valphas = _find_best_alphas(X, Y, inner_splits, **search)
+        best_valphas = _find_best_alphas(Xp, Yp, inner_splits, **search)
         wt, correlations, pvalues = _fit_and_score(
-            X, Y, X_te, Y_te, best_valphas, normalpha, singcutoff,
+            Xp, Yp, Xtp, Ytp, best_valphas, normalpha, singcutoff,
             voxel_chunk_size, method, return_weights=return_weights,
             perm_offsets=(_permutation_offsets(seed, None, n_perm,
-                                               Y_te.shape[0])
+                                               Ytp[0].shape[0])
                           if n_perm else None),
         )
+        wt, correlations, pvalues, best_valphas = strip(
+            wt, correlations, pvalues, best_valphas)
         significant, corrected_pvals = bh_fdrcorrection_np(pvalues,
                                                            alpha=alpha_fdr)
         n_significant = int(np.sum(significant))
@@ -1050,32 +1185,35 @@ def fit_nested_cv(
 
     # ---------------- full nested-CV mode ----------------
     logger.info("Running in full nested CV mode")
+    n_rows = Xp[0].shape[0]
     if outer_splits is None:
-        outer_splits = create_folds(X.shape[0], folding_type, n_outer_folds,
+        outer_splits = create_folds(n_rows, folding_type, n_outer_folds,
                                     chunk_length, None, groups, seed=seed)
     inner_per_fold = _inner_splits_per_fold(
         outer_splits, inner_splits, groups, folding_type, n_inner_folds,
         chunk_length, seed)
     fused = _full_cv_fused_eligible(
         method, normalpha, alphas, singcutoff, normalize_features,
-        normalize_targets, outer_splits, inner_per_fold, X.shape[1])
+        normalize_targets, outer_splits, inner_per_fold, Xp[0].shape[1])
     if fused:
         logger.info("full-CV path: fused outer-fold streaming (one union "
                     "Gram/XtY downdated per fold)")
         paths.update(mode="full_cv_fused", alpha_search="fused_chol",
                      fast_scan=("auto" if fast_scan == "auto"
                                 else ("bf16" if fast_scan else "off")))
-        G_full = X.T @ X
-        XtY_full = X.T @ Y
         # Rows outside the fold-scheme union (the chunking remainder) are in
         # no fold: downdated away once, so G/XtY describe exactly the union.
         union = np.unique(np.concatenate(
             [np.concatenate([tr, te]) for tr, te in outer_splits]))
-        leftover = np.setdiff1d(np.arange(X.shape[0]), union,
-                                assume_unique=True)
-        if leftover.size:
-            G_full, XtY_full = _downdate_outer(
-                X, Y, G_full, XtY_full, torch.as_tensor(leftover, device=dev))
+        leftover = np.setdiff1d(np.arange(n_rows), union, assume_unique=True)
+        G_full, XtY_full = [], []
+        for x, y in zip(Xp, Yp):
+            g, xty = x.T @ x, x.T @ y
+            if leftover.size:
+                g, xty = _downdate_outer(
+                    x, y, g, xty, torch.as_tensor(leftover, device=x.device))
+            G_full.append(g)
+            XtY_full.append(xty)
     else:
         logger.info("full-CV path: per-fold (fused ineligible; see "
                     "_full_cv_fused_eligible for the gates)")
@@ -1090,28 +1228,28 @@ def fit_nested_cv(
                    if n_perm else None)
         if fused:
             best_valphas, wt, correlations, pvalues = _fused_outer_fold(
-                X, Y, G_full, XtY_full, train_idx, test_idx,
+                Xp, Yp, G_full, XtY_full, train_idx, test_idx,
                 inner_per_fold[fold_idx], alphas, single_alpha, normalpha,
                 use_corr, singcutoff, return_weights, voxel_chunk_size,
                 fast_scan, offsets, fold_idx, paths)
             if pvalues is None:
                 pvalues = pearson_pvalues_f64(correlations, len(test_idx))
         else:
-            tr = torch.as_tensor(np.asarray(train_idx), device=dev)
-            te = torch.as_tensor(np.asarray(test_idx), device=dev)
-            X_train, X_te, y_train, y_te = X[tr], X[te], Y[tr], Y[te]
-            if normalize:
-                normalizer = DataNormalizer(normalize_features,
-                                            normalize_targets)
-                X_train, y_train = normalizer.fit_transform(X_train, y_train)
-                X_te, y_te = normalizer.transform(X_te, y_te)
+            parts = []
+            for x, y in zip(Xp, Yp):
+                tr = torch.as_tensor(np.asarray(train_idx), device=x.device)
+                te = torch.as_tensor(np.asarray(test_idx), device=x.device)
+                parts.append((x[tr], y[tr], x[te], y[te]))
+            X_train, y_train, X_te, y_te = normalized(parts)
             best_valphas = _find_best_alphas(
                 X_train, y_train, inner_per_fold[fold_idx], **search)
             wt, correlations, pvalues = _fit_and_score(
                 X_train, y_train, X_te, y_te, best_valphas, normalpha,
                 singcutoff, voxel_chunk_size, method,
                 return_weights=return_weights, perm_offsets=offsets)
-            del X_train, X_te, y_train, y_te
+            del X_train, X_te, y_train, y_te, parts
+        wt, correlations, pvalues, best_valphas = strip(
+            wt, correlations, pvalues, best_valphas)
         fold_valphas.append(best_valphas)
         if return_weights:
             fold_weights.append(wt)
@@ -1147,8 +1285,8 @@ def fit_nested_cv(
 
 
 class NestedCVModel(BasePredictivityModel):
-    """Nested-CV ridge model on `device` (reference NestedCVModel API;
-    `mesh`/`n_devices` raise NotImplementedError at fit_predict)."""
+    """Nested-CV ridge model on `device` (reference NestedCVModel API);
+    `mesh`/`n_devices` shard the fit's voxel axis (see fit_nested_cv)."""
 
     def __init__(self, model_name: str = "ridge_regression", seed: int = 0,
                  voxel_chunk_size: Optional[int] = None, mesh=None,

@@ -21,8 +21,10 @@ each group is one Cholesky solve against the gathered columns of X^T Y
 voxel chunk below V, or the caller asks for a chunk, every stage after the
 per-space alpha searches streams through voxel chunks, reusing the
 per-(fold, space) Grams ('grouped_chol_chunked'). Products run in fp32 with
-TF32 off. Not ported (ROADMAP.md A15): `mesh`/`n_devices`, which raise
-NotImplementedError.
+TF32 off. `mesh`/`n_devices` shard the voxel axis over a 1-D device mesh
+(parallel/mesh.py): the searches' scores meet for the argmax and every
+later stage runs shard by shard, the refits by per-voxel-index Cholesky
+('pervoxel_chol').
 """
 
 import logging
@@ -40,7 +42,6 @@ from litcoder_core_torch.models.folding import create_folds
 from litcoder_core_torch.models.nested_cv import (
     _create_metrics_dict,
     _find_best_alphas,
-    _not_ported,
 )
 from litcoder_core_torch.models.ridge import (
     lmax_dense,
@@ -110,8 +111,8 @@ def _chol_pred_pervoxel(G: torch.Tensor, XtY: torch.Tensor,
                         normalpha: bool) -> torch.Tensor:
     """(Tpred, V) ridge predictions with per-voxel alphas chosen by index
     into the grid: every alpha's predictions on all voxels, kept by an
-    elementwise where on `best_idx` (columnwise in V, the refit a voxel-
-    sharded fit needs; ROADMAP.md A15)."""
+    elementwise where on `best_idx` (columnwise in V: the refit of a
+    voxel-sharded fit)."""
     s0 = (torch.sqrt(torch.clamp(lmax_dense(G), min=0.0)) if normalpha
           else torch.ones((), dtype=torch.float32, device=G.device))
     pred = torch.zeros((Xpred.shape[0], XtY.shape[1]), dtype=torch.float32,
@@ -175,33 +176,35 @@ def _grouped_chol_pred(Xtr: torch.Tensor, Xpred: torch.Tensor,
                                    _normalpha_scale(G, normalpha))
 
 
-def _space_alphas_and_test(X: torch.Tensor, Y: torch.Tensor, fold_splits,
-                           alphas, normalpha: bool, use_corr: bool,
-                           singcutoff: float, method: str,
-                           X_test: Optional[torch.Tensor], chol_refit: bool,
-                           voxel_chunk_size: Optional[int],
-                           paths: Dict[str, str]):
-    """One feature space's per-voxel alphas (the fit_nested_cv search) and,
-    with a test set, its full-train refit's test predictions (Tp, V):
-    grouped Cholesky under the gates, spectral otherwise. Returns (alphas
-    tensor, predictions or None, alphas numpy)."""
-    best = _find_best_alphas(X, Y, fold_splits,
-                             np.asarray(alphas, np.float32), False,
-                             normalpha, use_corr, singcutoff,
-                             voxel_chunk_size, method, False, paths)
+def _space_test_pred(X: torch.Tensor, Y: torch.Tensor, X_test: torch.Tensor,
+                     best: np.ndarray, alphas, normalpha: bool,
+                     singcutoff: float, method: str, chol_refit: bool,
+                     pervoxel: bool) -> torch.Tensor:
+    """One feature space's full-train refit at its selected per-voxel
+    alphas, predicting the test rows (Tp, V): grouped Cholesky under the
+    gates (per-voxel-index Cholesky when `pervoxel`, the voxel-sharded
+    route), spectral otherwise."""
+    if chol_refit and pervoxel:
+        return _pervoxel_chol_pred(X, X_test, Y, alphas,
+                                   _best_index(best, alphas, X.device),
+                                   normalpha)
+    if chol_refit:
+        return _grouped_chol_pred(X, X_test, Y, best, normalpha)
     best_t = torch.as_tensor(best, device=X.device)
-    y_pred_test = None
-    if X_test is not None:
-        if chol_refit:
-            y_pred_test = _grouped_chol_pred(X, X_test, Y, best, normalpha)
-        else:
-            svd_full = ridge_svd(X, None, singcutoff=singcutoff,
-                                 method="auto" if method in ("chol", "dual")
-                                 else method)
-            nal = best_t * svd_full.S[0] if normalpha else best_t
-            y_pred_test = predict(X_test,
-                                  ridge_fit_from_svd(svd_full, Y, nal))
-    return best_t, y_pred_test, best
+    svd_full = ridge_svd(X, None, singcutoff=singcutoff,
+                         method="auto" if method in ("chol", "dual")
+                         else method)
+    nal = best_t * svd_full.S[0] if normalpha else best_t
+    return predict(X_test, ridge_fit_from_svd(svd_full, Y, nal))
+
+
+def _best_index(best: np.ndarray, alphas, device) -> torch.Tensor:
+    """(V,) index of each voxel's selected alpha in the grid (the first
+    match)."""
+    alphas = np.asarray(alphas, np.float32)
+    return torch.as_tensor(
+        np.argmax(alphas[None, :] == np.asarray(best)[:, None], axis=1),
+        device=device)
 
 
 def _colwise_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -397,7 +400,10 @@ def fit_stacked_ridge(
         X_tests / y_test: matching test spaces / (Tp, V) responses.
         voxel_chunk_size: streams each space's alpha search through voxel
             chunks (and, on the grouped-Cholesky route, every later stage).
-        mesh / n_devices: not ported; they raise NotImplementedError.
+        mesh / n_devices: a 1-D voxel mesh (or a device count to build
+            one; n entries of the CPU for a CPU fit): zero-padded voxel
+            shards, each fitted on its device after the shared argmax; it
+            replaces voxel chunking.
         Others: the contracts of fit_nested_cv / fit_banded_ridge.
 
     Returns:
@@ -441,13 +447,17 @@ def fit_stacked_ridge(
                     f"test space {s} has {Xt.shape[1]} features; train "
                     f"space has {Xs[s].shape[1]}"
                 )
-    if mesh is not None or n_devices is not None:
-        raise _not_ported("mesh/n_devices voxel sharding")
+    from litcoder_core_torch.parallel.mesh import (
+        replicate,
+        resolve_voxel_mesh,
+        shard_padded,
+    )
+
     dev = resolve_device(device)
+    vox_mesh = resolve_voxel_mesh(mesh, n_devices, "fit_stacked_ridge", dev)
     if alphas is None:
         alphas = np.logspace(-1, 8, 10)
     alphas = np.asarray(alphas, np.float32)
-    Y_j = as_f32(Y, dev)
     Xs_j = [as_f32(X, dev) for X in Xs]
     X_tests_j = ([as_f32(Xt, dev) for Xt in X_tests]
                  if X_tests is not None else None)
@@ -464,7 +474,8 @@ def fit_stacked_ridge(
     )
     svd_method = "auto" if method in ("chol", "dual") else method
 
-    if chol_oof:
+    # A mesh replaces chunking entirely, as in fit_nested_cv.
+    if vox_mesh is None and chol_oof:
         cap = _stacked_chunk_cap(T, V)
         chunk_eff = (min(int(voxel_chunk_size), cap)
                      if voxel_chunk_size else cap)
@@ -473,63 +484,120 @@ def fit_stacked_ridge(
                 "stacked fit: streaming refit/QP/blend/test through "
                 "%d-voxel chunks (%d voxels)", chunk_eff, V)
             return _fit_stacked_chunked(
-                Xs_j, Y_j, X_tests_j, y_test, alphas, fold_splits,
-                normalpha, use_corr, singcutoff, method, n_iter, chunk_eff,
-                alpha_fdr, voxel_chunk_size or chunk_eff, timer, V, paths)
+                Xs_j, as_f32(Y, dev), X_tests_j, y_test, alphas,
+                fold_splits, normalpha, use_corr, singcutoff, method, n_iter,
+                chunk_eff, alpha_fdr, voxel_chunk_size or chunk_eff, timer,
+                V, paths)
 
-    best_ts, tests, all_alphas = [], [], []
+    # The voxel axis as column blocks (one, or a mesh's shards): every
+    # stage after the per-space argmax is columnwise, so each block runs
+    # on its own device and the host concatenates.
+    if vox_mesh is None:
+        parts = [dict(Xs=Xs_j, Y=as_f32(Y, dev), X_tests=X_tests_j,
+                      y_test=(None if y_test is None
+                              else as_f32(y_test, dev)))]
+    else:
+        if voxel_chunk_size is not None:
+            logger.info(
+                "mesh sharding replaces voxel chunking; ignoring "
+                "voxel_chunk_size=%d (each device holds 1/%d of the "
+                "voxel axis)", voxel_chunk_size, vox_mesh.size,
+            )
+            voxel_chunk_size = None
+
+        X_rep = [replicate(X, vox_mesh) for X in Xs_j]
+        Xt_rep = ([replicate(Xt, vox_mesh) for Xt in X_tests_j]
+                  if X_tests_j is not None else None)
+        yt_shards = (shard_padded(y_test, vox_mesh).shards
+                     if y_test is not None else None)
+        parts = [dict(Xs=[r[y.device] for r in X_rep], Y=y,
+                      X_tests=(None if Xt_rep is None
+                               else [r[y.device] for r in Xt_rep]),
+                      y_test=None if yt_shards is None else yt_shards[i])
+                 for i, y in enumerate(shard_padded(Y, vox_mesh).shards)]
+        logger.info(
+            "stacked voxel-sharded fit: %d voxels (+%d pad) over %d "
+            "devices", V, sum(p["Y"].shape[1] for p in parts) - V,
+            vox_mesh.size,
+        )
+    pervoxel = vox_mesh is not None
+    bounds = np.cumsum([0] + [p["Y"].shape[1] for p in parts])
+    S = len(Xs)
+
+    all_alphas = []
     with timer.stage("per_space_search_and_test_refit"):
-        for s, X_j in enumerate(Xs_j):
-            best_t, y_pred_t, best = _space_alphas_and_test(
-                X_j, Y_j, fold_splits, alphas, normalpha, use_corr,
-                singcutoff, method,
-                None if X_tests_j is None else X_tests_j[s], chol_oof,
-                voxel_chunk_size, paths)
-            best_ts.append(best_t)
-            tests.append(y_pred_t)
+        for s in range(S):
+            best = _find_best_alphas(
+                [p["Xs"][s] for p in parts], [p["Y"] for p in parts],
+                fold_splits, alphas, False, normalpha, use_corr, singcutoff,
+                voxel_chunk_size, method, False, paths)
             all_alphas.append(best)
+            for p, lo, hi in zip(parts, bounds[:-1], bounds[1:]):
+                p.setdefault("tests", []).append(
+                    None if p["X_tests"] is None else _space_test_pred(
+                        p["Xs"][s], p["Y"], p["X_tests"][s], best[lo:hi],
+                        alphas, normalpha, singcutoff, method, chol_oof,
+                        pervoxel))
 
     # The QP terms accumulate fold by fold (validation sets are disjoint,
     # so the fold sums equal the concatenated out-of-fold Grams) and
     # pairwise per space: no (S, Tva, V) stack exists.
-    S = len(Xs)
-    A_sv = torch.zeros((S, S, V), dtype=torch.float32, device=dev)
-    b_sv = torch.zeros((S, V), dtype=torch.float32, device=dev)
-    n_rows_used = 0
+    n_rows_used = sum(len(va) for _, va in fold_splits)
     with timer.stage("oof_refits_and_qp_accumulation"):
-        for tr_np, va_np in fold_splits:
-            tr = torch.as_tensor(np.asarray(tr_np), device=dev)
-            va = torch.as_tensor(np.asarray(va_np), device=dev)
-            preds = []
-            for s, X_j in enumerate(Xs_j):
-                if chol_oof:
-                    preds.append(_grouped_chol_pred(
-                        X_j[tr], X_j[va], Y_j[tr], all_alphas[s], normalpha))
-                else:
-                    svd = ridge_svd(X_j[tr], None, singcutoff=singcutoff,
-                                    method=svd_method)
-                    nal = best_ts[s] * svd.S[0] if normalpha else best_ts[s]
-                    preds.append(predict(
-                        X_j[va], ridge_fit_from_svd(svd, Y_j[tr], nal)))
-            _accumulate_qp(A_sv, b_sv, preds, Y_j[va])
-            n_rows_used += len(va_np)
+        for p, lo, hi in zip(parts, bounds[:-1], bounds[1:]):
+            pdev = p["Y"].device
+            p["A"] = torch.zeros((S, S, hi - lo), dtype=torch.float32,
+                                 device=pdev)
+            p["b"] = torch.zeros((S, hi - lo), dtype=torch.float32,
+                                 device=pdev)
+            for tr_np, va_np in fold_splits:
+                tr = torch.as_tensor(np.asarray(tr_np), device=pdev)
+                va = torch.as_tensor(np.asarray(va_np), device=pdev)
+                preds = []
+                for s, X_j in enumerate(p["Xs"]):
+                    best = all_alphas[s][lo:hi]
+                    if chol_oof and pervoxel:
+                        preds.append(_pervoxel_chol_pred(
+                            X_j[tr], X_j[va], p["Y"][tr], alphas,
+                            _best_index(best, alphas, pdev), normalpha))
+                    elif chol_oof:
+                        preds.append(_grouped_chol_pred(
+                            X_j[tr], X_j[va], p["Y"][tr], best, normalpha))
+                    else:
+                        best_t = torch.as_tensor(best, device=pdev)
+                        svd = ridge_svd(X_j[tr], None, singcutoff=singcutoff,
+                                        method=svd_method)
+                        nal = best_t * svd.S[0] if normalpha else best_t
+                        preds.append(predict(
+                            X_j[va], ridge_fit_from_svd(svd, p["Y"][tr],
+                                                        nal)))
+                _accumulate_qp(p["A"], p["b"], preds, p["Y"][va])
     if n_rows_used < T:
         logger.info("stacking: %d/%d training rows outside all validation "
                     "folds are excluded from the blend fit",
                     T - n_rows_used, T)
     with timer.stage("blend_fista"):
-        w = simplex_lsq(A_sv.permute(2, 0, 1), b_sv.T, n_iter=n_iter)
-        stack_weights = to_numpy(w)                              # (V, S)
-    best_alphas = np.stack(all_alphas)                           # (S, V)
+        for p in parts:
+            p["w"] = simplex_lsq(p.pop("A").permute(2, 0, 1), p.pop("b").T,
+                                 n_iter=n_iter)
+        stack_weights = np.concatenate([to_numpy(p["w"]) for p in parts])[:V]
+    best_alphas = np.stack(all_alphas)[:, :V]                    # (S, V)
 
-    paths["oof_refit"] = "grouped_chol" if chol_oof else "spectral"
+    paths["oof_refit"] = ("pervoxel_chol" if chol_oof and pervoxel
+                          else "grouped_chol" if chol_oof else "spectral")
     metrics = _stack_summary(stack_weights, paths)
     if X_tests is not None:
         with timer.stage("test_scoring"):
-            y_test_j = as_f32(y_test, dev)
-            y_pred = sum(w[:, s][None, :] * tests[s] for s in range(S))
-            corr = to_numpy(pearson_r(y_test_j, y_pred))
-            per_space = [to_numpy(pearson_r(y_test_j, p)) for p in tests]
+            corr, per_space = [], [[] for _ in range(S)]
+            for p in parts:
+                w, tests = p["w"], p["tests"]
+                y_pred = sum(w[:, s][None, :] * tests[s] for s in range(S))
+                corr.append(to_numpy(pearson_r(p["y_test"], y_pred)))
+                for s in range(S):
+                    per_space[s].append(to_numpy(pearson_r(p["y_test"],
+                                                           tests[s])))
+            corr = np.concatenate(corr)[:V]
+            per_space = [np.concatenate(c)[:V] for c in per_space]
         _test_metrics(metrics, corr, per_space, int(y_test.shape[0]),
                       best_alphas, alpha_fdr, "")
     metrics["stage_seconds"] = timer.report()
@@ -539,7 +607,7 @@ def fit_stacked_ridge(
 class StackedRidgeModel:
     """Object API over fit_stacked_ridge on `device`: fit_predict takes
     feature spaces and returns (metrics, stack_weights (V, S),
-    best_alphas (S, V)). `mesh`/`n_devices` raise NotImplementedError."""
+    best_alphas (S, V)); `mesh`/`n_devices` shard the voxel axis."""
 
     def __init__(self, model_name: str = "stacked_ridge", seed: int = 0,
                  mesh=None, n_devices: Optional[int] = None, device="cuda"):

@@ -21,7 +21,9 @@ functions `_scan_best_alphas`, `_refit_union_woodbury`, `_refit_full` and
 
 Everything runs in fp32 with TF32 off (the JAX package's
 Precision.HIGHEST), except the scan products that `fast_scan` puts in TF32.
-Not ported (ROADMAP.md): a `mesh` for voxel sharding.
+`make_nested_cv_step(mesh=...)` runs the step over a 1-D voxel mesh
+(parallel/mesh.py): the X side once per distinct device, the voxel side
+shard by shard.
 """
 
 import functools
@@ -35,7 +37,6 @@ from litcoder_core_torch.models.nested_cv import (
     _complement_fold_factors,
     _fold_spectral_states,
     _fold_states_complement,
-    _not_ported,
     _score_all_complement,
     _score_chunk_with_states,
     _score_fold_voxel_chunks,
@@ -48,6 +49,13 @@ from litcoder_core_torch.models.ridge import (
     score_alpha_grid_woodbury,
 )
 from litcoder_core_torch.ops.stats import pearson_pvalues, pearson_r
+from litcoder_core_torch.parallel.mesh import (  # noqa: F401 (pad_voxels)
+    VoxelShards,
+    pad_voxels,
+    replicate,
+    resolve_voxel_mesh,
+    shard_padded,
+)
 from litcoder_core_torch.utils.device import (
     as_f32,
     matmul_tf32,
@@ -63,17 +71,6 @@ class NestedCVResult(NamedTuple):
     pvalues: torch.Tensor        # (V,) two-sided p per voxel
     best_alphas: torch.Tensor    # (V,) selected (un-normalized) alphas
     weights: torch.Tensor        # (D, V) refit ridge weights
-
-
-def pad_voxels(Y, n_devices: int):
-    """Pad the last (voxel) axis with zeros to a multiple of n_devices.
-    Returns (padded tensor, original count)."""
-    Y = torch.as_tensor(Y)
-    v = Y.shape[-1]
-    pad = (-v) % n_devices
-    if pad:
-        Y = torch.nn.functional.pad(Y, (0, pad))
-    return Y, v
 
 
 def _folds_are_complementary(train_idx, val_idx) -> bool:
@@ -98,6 +95,38 @@ def _index(idx, device: torch.device) -> torch.Tensor:
     if isinstance(idx, torch.Tensor):
         return idx.to(device=device, dtype=torch.long)
     return torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
+
+
+def _step_route(X, alphas, train_idx, val_idx, normalpha: bool,
+                singcutoff: float, method: str, fast_scan):
+    """(complement, scan) of a step call, after checking its options."""
+    if not isinstance(fast_scan, bool):
+        raise ValueError(
+            "nested_cv_step takes a boolean fast_scan; the guarded "
+            "'auto' mode lives in models.nested_cv.fit_nested_cv (it "
+            "needs a second calibration dispatch, which this single-"
+            "program step deliberately avoids)"
+        )
+    if method not in ("auto", "chol", "dual", "eigh", "svd", "woodbury"):
+        raise ValueError(
+            f"method must be one of 'auto', 'chol', 'dual', 'eigh', "
+            f"'svd', 'woodbury'; got {method!r}"
+        )
+    complement = (method in ("auto", "eigh", "woodbury", "chol")
+                  and train_idx.shape[1] >= X.shape[1])
+    if complement:
+        complement = _folds_are_complementary(to_numpy(train_idx),
+                                              to_numpy(val_idx))
+    if method in ("woodbury", "chol") and not complement:
+        raise ValueError(
+            f"method={method!r} requires complementary equal-size folds "
+            "with tall training blocks (each fold's train rows = union of "
+            "all val rows minus its own, and Ttr >= D); these folds are "
+            "ineligible — use method='auto' to fall back automatically"
+        )
+    scan = _resolve_scan_method(method, complement, alphas, normalpha,
+                                singcutoff)
+    return complement, scan
 
 
 def nested_cv_step(
@@ -127,32 +156,8 @@ def nested_cv_step(
         NestedCVResult(correlations, pvalues, best_alphas, weights), tensors
         on `device`.
     """
-    if not isinstance(fast_scan, bool):
-        raise ValueError(
-            "nested_cv_step takes a boolean fast_scan; the guarded "
-            "'auto' mode lives in models.nested_cv.fit_nested_cv (it "
-            "needs a second calibration dispatch, which this single-"
-            "program step deliberately avoids)"
-        )
-    if method not in ("auto", "chol", "dual", "eigh", "svd", "woodbury"):
-        raise ValueError(
-            f"method must be one of 'auto', 'chol', 'dual', 'eigh', "
-            f"'svd', 'woodbury'; got {method!r}"
-        )
-    complement = (method in ("auto", "eigh", "woodbury", "chol")
-                  and train_idx.shape[1] >= X.shape[1])
-    if complement:
-        complement = _folds_are_complementary(to_numpy(train_idx),
-                                              to_numpy(val_idx))
-    if method in ("woodbury", "chol") and not complement:
-        raise ValueError(
-            f"method={method!r} requires complementary equal-size folds "
-            "with tall training blocks (each fold's train rows = union of "
-            "all val rows minus its own, and Ttr >= D); these folds are "
-            "ineligible — use method='auto' to fall back automatically"
-        )
-    scan = _resolve_scan_method(method, complement, alphas, normalpha,
-                                singcutoff)
+    complement, scan = _step_route(X, alphas, train_idx, val_idx, normalpha,
+                                   singcutoff, method, fast_scan)
     dev = resolve_device(device)
     return _nested_cv_step_impl(
         as_f32(X, dev), as_f32(Y, dev), as_f32(X_test, dev),
@@ -209,6 +214,17 @@ def _scan_best_alphas(
                       fast_scan)[0]
 
 
+def _once(memo, key, fn):
+    """fn(), computed once per `memo`: under a mesh each distinct device has
+    one memo, so the X-side work its shards share runs once there. With
+    memo None it is computed on every call."""
+    if memo is None:
+        return fn()
+    if key not in memo:
+        memo[key] = fn()
+    return memo[key]
+
+
 def _scan_core(
     X, Y, alphas, train_idx, val_idx,
     normalpha: bool, use_corr: bool, single_alpha: bool, singcutoff: float,
@@ -218,6 +234,31 @@ def _scan_core(
     """Fold scan + per-voxel argmax, returning (best_alphas, aux): aux is
     the woodbury scan's union products (lam_u, Q, XtY_u, union) for the
     refit, None on every other scan."""
+    mean_corrs, aux = _fold_scan(
+        X, Y, alphas, train_idx, val_idx, normalpha, use_corr, singcutoff,
+        method, complement, scan, fast_scan, voxel_shards=voxel_shards)
+    alphas = torch.as_tensor(alphas, dtype=torch.float32,
+                             device=mean_corrs.device)
+    # torch.argmax returns the first maximum, as jnp.argmax does.
+    if single_alpha:
+        best_idx = torch.argmax(torch.mean(mean_corrs, dim=1))
+        best_alphas = alphas[best_idx].repeat(mean_corrs.shape[1])
+    else:
+        best_alphas = alphas[torch.argmax(mean_corrs, dim=0)]
+    return best_alphas, aux
+
+
+def _fold_scan(
+    X, Y, alphas, train_idx, val_idx,
+    normalpha: bool, use_corr: bool, singcutoff: float,
+    method: str, complement: bool, scan: str = "eigh",
+    fast_scan: bool = False, voxel_shards: int = 1, memo=None,
+    n_vox=None,
+):
+    """(mean fold scores (A, V), aux) of the scan; aux as in _scan_core.
+    `memo` keeps the X-side products (Grams, eigendecompositions, solve
+    factors) for the next shard on the same device; `n_vox` is the voxel
+    count the woodbury alpha batch is sized for (default: Y's)."""
     X = X.to(torch.float32)
     Y = Y.to(torch.float32)
     dev = X.device
@@ -230,30 +271,40 @@ def _scan_core(
     if complement and scan == "eigh":
         # Per-fold eigh of G_union - Xva^T Xva (nested_cv's complement scan).
         union = torch.sort(val_idx.reshape(-1)).values
-        states = _fold_states_complement(X, union, val_idx, singcutoff)
+        states = _once(memo, "states", lambda: _fold_states_complement(
+            X, union, val_idx, singcutoff))
         mean_corrs = _score_all_complement(
-            states, X[union], Y, union, torch.searchsorted(union, val_idx),
-            alphas, normalpha, use_corr, None, fast_scan)
+            states, _once(memo, "Xu", lambda: X[union]), Y, union,
+            torch.searchsorted(union, val_idx), alphas, normalpha, use_corr,
+            None, fast_scan)
     elif complement:
         union = torch.sort(val_idx.reshape(-1)).values
-        Xu = X[union]
-        G_union = Xu.T @ Xu
+        Xu = _once(memo, "Xu", lambda: X[union])
+        G_union = _once(memo, "G_union", lambda: Xu.T @ Xu)
         XtY_u = Xu.T @ Y[union]
         fold_sum = 0
         if scan == "woodbury":
-            lam_u, Q = torch.linalg.eigh(G_union)
+            lam_u, Q = _once(memo, "eigh_union",
+                             lambda: torch.linalg.eigh(G_union))
             aux = (lam_u, Q, XtY_u, union)
-            ab = _woodbury_alpha_batch(n_folds, val_idx.shape[1], Y.shape[1],
-                                       alphas.shape[0],
-                                       voxel_shards=voxel_shards)
-            for va in val_idx:
-                Xva, Yva = X[va], Y[va]
-                P = Xva @ Q
-                UR0 = Q.T @ (XtY_u - Xva.T @ Yva)
+            ab = _woodbury_alpha_batch(
+                n_folds, val_idx.shape[1],
+                Y.shape[1] if n_vox is None else n_vox, alphas.shape[0],
+                voxel_shards=voxel_shards)
+
+            def fold_factors(va):
+                P = X[va] @ Q
                 nal = alphas
                 if normalpha:
                     nal = alphas * torch.sqrt(torch.clamp(
                         lmax_downdate(lam_u, P), min=0.0))
+                return P, nal
+
+            for f, va in enumerate(val_idx):
+                Xva, Yva = X[va], Y[va]
+                P, nal = _once(memo, ("woodbury", f),
+                               lambda: fold_factors(va))
+                UR0 = Q.T @ (XtY_u - Xva.T @ Yva)
                 fold_sum = fold_sum + score_alpha_grid_woodbury(
                     lam_u, P, UR0, Yva, nal, use_corr=use_corr,
                     fast_scan=fast_scan, alpha_batch=ab)
@@ -261,9 +312,10 @@ def _scan_core(
         else:
             # 'chol': a Cholesky per (fold, alpha) of G_union - Xva^T Xva,
             # normalpha from lmax_dense; the downdated X^T Y joins fast_scan.
-            for va in val_idx:
-                Z_all = _complement_fold_factors(X[va], G_union, alphas,
-                                                 normalpha)
+            for f, va in enumerate(val_idx):
+                Z_all = _once(memo, ("chol", f),
+                              lambda: _complement_fold_factors(
+                                  X[va], G_union, alphas, normalpha))
                 fold_sum = fold_sum + _score_fold_voxel_chunks(
                     Z_all, Y, use_corr, None, fast_scan, form="complement",
                     X=X, va=va, XtY_base=XtY_u)
@@ -273,23 +325,17 @@ def _scan_core(
         # 'woodbury'/'chol' name complement scans: the per-fold spectral
         # states pick eigh or dual by shape.
         svd_method = "auto" if method in ("woodbury", "chol") else method
-        states = _fold_spectral_states(X, train_idx, val_idx, singcutoff,
-                                       svd_method)
+        states = _once(memo, "spectral", lambda: _fold_spectral_states(
+            X, train_idx, val_idx, singcutoff, svd_method))
         mean_corrs = _score_chunk_with_states(states, Y, train_idx, val_idx,
                                               alphas, normalpha, use_corr)
-
-    # torch.argmax returns the first maximum, as jnp.argmax does.
-    if single_alpha:
-        best_idx = torch.argmax(torch.mean(mean_corrs, dim=1))
-        best_alphas = alphas[best_idx].repeat(Y.shape[1])
-    else:
-        best_alphas = alphas[torch.argmax(mean_corrs, dim=0)]
-    return best_alphas, aux
+    return mean_corrs, aux
 
 
 @matmul_tf32(False)
 def _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union, best_alphas,
-                          alphas, normalpha: bool) -> torch.Tensor:
+                          alphas, normalpha: bool,
+                          memo=None) -> torch.Tensor:
     """(D, V) per-voxel refit weights from the woodbury scan's union
     products: no second eigensolve, no X^T Y recompute.
 
@@ -302,21 +348,26 @@ def _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union, best_alphas,
     S_a is applied by cholesky_solve against the (k, V) right-hand side
     (the JAX package forms an explicit inverse, which suits a voxel-sharded
     right-hand side; with one card the solve is as cheap and no less
-    accurate: S_a >= I). normalpha's scale comes from lmax_update."""
+    accurate: S_a >= I). normalpha's scale comes from lmax_update. `memo`
+    keeps the X-side factors for the next shard on the device."""
     t_all = X.shape[0]
     k = t_all - int(union.shape[0])
     lam = torch.clamp(lam_u, min=0.0)
     alphas = torch.as_tensor(alphas, dtype=torch.float32, device=X.device)
 
     if k > 0:
-        # Remainder rows = arange(T) minus the union, ascending (the JAX
-        # package's stable argsort of the union mask).
-        in_union = torch.zeros(t_all, dtype=torch.bool, device=X.device)
-        in_union[union] = True
-        rem = torch.nonzero(~in_union).squeeze(1)
-        Pr = X[rem] @ Q                                       # (k, D)
+        def remainder():
+            # Remainder rows = arange(T) minus the union, ascending (the
+            # JAX package's stable argsort of the union mask).
+            in_union = torch.zeros(t_all, dtype=torch.bool, device=X.device)
+            in_union[union] = True
+            rem = torch.nonzero(~in_union).squeeze(1)
+            Pr = X[rem] @ Q                                   # (k, D)
+            return rem, Pr, torch.sqrt(torch.clamp(lmax_update(lam, Pr),
+                                                   min=0.0))
+
+        rem, Pr, s0 = _once(memo, "refit_remainder", remainder)
         q = Q.T @ XtY_u + Pr.T @ Y[rem]                       # (D, V)
-        s0 = torch.sqrt(torch.clamp(lmax_update(lam, Pr), min=0.0))
     else:
         q = Q.T @ XtY_u
         s0 = torch.sqrt(torch.max(lam))
@@ -327,11 +378,14 @@ def _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union, best_alphas,
     if k == 0:
         return Q @ t1
 
-    nal_a = alphas * s0 if normalpha else alphas              # (A,)
-    d_a = 1.0 / (lam[None, :] + (nal_a * nal_a)[:, None])     # (A, D)
-    S = (torch.eye(k, dtype=torch.float32, device=X.device)[None]
-         + (Pr[None, :, :] * d_a[:, None, :]) @ Pr.T)         # (A, k, k)
-    L = torch.linalg.cholesky(S)
+    def rank_k_factors():
+        nal_a = alphas * s0 if normalpha else alphas          # (A,)
+        d_a = 1.0 / (lam[None, :] + (nal_a * nal_a)[:, None])  # (A, D)
+        S = (torch.eye(k, dtype=torch.float32, device=X.device)[None]
+             + (Pr[None, :, :] * d_a[:, None, :]) @ Pr.T)     # (A, k, k)
+        return torch.linalg.cholesky(S)
+
+    L = _once(memo, "refit_chol", rank_k_factors)
     Zb = torch.cholesky_solve(Pr @ t1, L)                     # (A, k, V)
     # Each voxel's own alpha: the FIRST grid match (argmax semantics, so a
     # repeated grid value takes its first position).
@@ -343,12 +397,14 @@ def _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union, best_alphas,
 
 @matmul_tf32(False)
 def _refit_full(X, Y, best_alphas, normalpha: bool, singcutoff: float,
-                method: str) -> torch.Tensor:
+                method: str, memo=None) -> torch.Tensor:
     """(D, V) full-train per-voxel-alpha refit weights — the REFIT stage
-    (one spectral factorization of X and the dense shrinkage solve)."""
+    (one spectral factorization of X, kept in `memo` for the next shard on
+    the device, and the dense shrinkage solve)."""
     svd_method = "auto" if method in ("woodbury", "chol") else method
-    svd_full = ridge_svd(X.to(torch.float32), None, singcutoff=singcutoff,
-                         method=svd_method)
+    svd_full = _once(memo, "refit_svd", lambda: ridge_svd(
+        X.to(torch.float32), None, singcutoff=singcutoff,
+        method=svd_method))
     nal = best_alphas * svd_full.S[0] if normalpha else best_alphas
     return ridge_fit_from_svd(svd_full, Y.to(torch.float32), nal)
 
@@ -374,33 +430,121 @@ def _nested_cv_step_impl(
         single_alpha, singcutoff, method, complement, scan, fast_scan,
         voxel_shards=voxel_shards,
     )
-    # The woodbury scan's union eigendecomposition doubles as the refit's
-    # factorization, rank-k corrected; a large remainder outside the fold
-    # union (hand-built folds only) or a negative one (overlapping val
-    # blocks) takes the standalone spectral refit.
-    k_rem = (X.shape[0] - aux[3].shape[0]) if aux is not None else None
-    union_refit = (aux is not None and singcutoff <= 1e-10
-                   and 0 <= k_rem <= max(256, X.shape[0] // 8))
+    union_refit = _union_refit(X, aux, singcutoff)
     logger.info("nested_cv_step: %s scan, %s refit",
                 scan if complement else "per_fold",
                 "union_woodbury" if union_refit else "full")
-    if union_refit:
-        lam_u, Q, XtY_u, union = aux
-        weights = _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union,
-                                        best_alphas, alphas, normalpha)
-    else:
-        weights = _refit_full(X, Y, best_alphas, normalpha, singcutoff,
-                              method)
+    weights = _refit(X, Y, aux, union_refit, best_alphas, alphas, normalpha,
+                     singcutoff, method)
     correlations, pvalues = _predict_and_score(X_test, Y_test, weights)
     return NestedCVResult(correlations, pvalues, best_alphas, weights)
 
 
+def _union_refit(X, aux, singcutoff: float) -> bool:
+    """The woodbury scan's union eigendecomposition doubles as the refit's
+    factorization, rank-k corrected; a large remainder outside the fold
+    union (hand-built folds only) or a negative one (overlapping val
+    blocks) takes the standalone spectral refit."""
+    if aux is None or singcutoff > 1e-10:
+        return False
+    k_rem = X.shape[0] - aux[3].shape[0]
+    return 0 <= k_rem <= max(256, X.shape[0] // 8)
+
+
+def _refit(X, Y, aux, union_refit: bool, best_alphas, alphas,
+           normalpha: bool, singcutoff: float, method: str, memo=None):
+    """(D, V) refit weights on the route _union_refit chose."""
+    if union_refit:
+        lam_u, Q, XtY_u, union = aux
+        return _refit_union_woodbury(X, Y, lam_u, Q, XtY_u, union,
+                                     best_alphas, alphas, normalpha, memo)
+    return _refit_full(X, Y, best_alphas, normalpha, singcutoff, method,
+                       memo)
+
+
+@matmul_tf32(False)
+def _nested_cv_step_sharded(
+    mesh, X, Y, X_test, Y_test, alphas, train_idx, val_idx,
+    normalpha: bool = True, use_corr: bool = True,
+    single_alpha: bool = False, singcutoff: float = 1e-10,
+    method: str = "auto", fast_scan: bool = False,
+    voxel_shards: int = 1, device="cuda",
+) -> NestedCVResult:
+    """nested_cv_step over a 1-D voxel mesh: Y and Y_test shard on the
+    voxel axis (already-sharded VoxelShards are used as they are), X and
+    X_test replicate once per distinct device. Each device runs the X-side
+    work (Grams, eigendecompositions, solve factors, the refit's
+    factorization) once, in a memo its shards share; the voxel side runs
+    shard by shard. The per-voxel argmax needs no other shard; only
+    single_alpha sums each shard's (A,) fold scores on the first device.
+    The result's fields are VoxelShards."""
+    complement, scan = _step_route(X, alphas, train_idx, val_idx, normalpha,
+                                   singcutoff, method, fast_scan)
+    # V divides the mesh (checked by the caller), so shard_padded pads
+    # nothing here.
+    Y_sh, Yt_sh = (a if isinstance(a, VoxelShards) else shard_padded(a, mesh)
+                   for a in (Y, Y_test))
+    X_rep, Xt_rep = (replicate(as_f32(a, mesh.devices.flat[0]), mesh)
+                     for a in (X, X_test))
+    memos = {d: {} for d in X_rep}
+    n_vox = Y_sh.shape[-1]
+    scans = [_fold_scan(X_rep[y.device], y, as_f32(alphas, y.device),
+                        train_idx, val_idx, normalpha, use_corr, singcutoff,
+                        method, complement, scan, fast_scan,
+                        voxel_shards=voxel_shards, memo=memos[y.device],
+                        n_vox=n_vox)
+             for y in Y_sh.shards]
+    first = Y_sh.shards[0].device
+    if single_alpha:
+        # The one cross-shard reduction: each shard's (A,) score sums.
+        for mc, _ in scans:
+            mesh.transfers.append(("reduce", (mc.shape[0],)))
+        total = sum(mc.sum(dim=1).to(first) for mc, _ in scans)
+        best_idx = int(torch.argmax(total / n_vox))
+    union_refit = _union_refit(X_rep[first], scans[0][1], singcutoff)
+    logger.info("nested_cv_step: %s scan, %s refit over %d voxel shards",
+                scan if complement else "per_fold",
+                "union_woodbury" if union_refit else "full", mesh.size)
+    out = []
+    for y, yt, (mc, aux) in zip(Y_sh.shards, Yt_sh.shards, scans):
+        d = y.device
+        a_d = as_f32(alphas, d)
+        best = (a_d[best_idx].repeat(y.shape[1]) if single_alpha
+                else a_d[torch.argmax(mc, dim=0)])
+        del mc
+        w = _refit(X_rep[d], y, aux, union_refit, best, a_d, normalpha,
+                   singcutoff, method, memos[d])
+        corr, p = _predict_and_score(Xt_rep[d], yt, w)
+        out.append((corr, p, best, w))
+    return NestedCVResult(*(VoxelShards(list(parts), mesh)
+                            for parts in zip(*out)))
+
+
 def make_nested_cv_step(mesh=None, **static_kwargs):
-    """nested_cv_step with its options bound. A `mesh` (voxel sharding) is
-    not ported and raises NotImplementedError."""
-    if mesh is not None:
-        raise _not_ported("mesh voxel sharding")
-    return functools.partial(nested_cv_step, **static_kwargs)
+    """nested_cv_step with its options bound (and optionally a mesh).
+
+    With a 1-D voxel mesh the returned step places its inputs before
+    running: Y and Y_test shard over the voxel axis, which must be
+    divisible by the mesh size (use pad_voxels first), X and X_test
+    replicate, and `voxel_shards` defaults to the mesh size. It returns a
+    NestedCVResult of VoxelShards (see _nested_cv_step_sharded). Without a
+    mesh, inputs run on `device`."""
+    if mesh is None:
+        return functools.partial(nested_cv_step, **static_kwargs)
+
+    def step(X, Y, X_test, Y_test, *args, **kwargs):
+        kw = {**static_kwargs, **kwargs}
+        n = resolve_voxel_mesh(mesh, None, "make_nested_cv_step",
+                               resolve_device(kw.get("device", "cuda"))).size
+        if Y.shape[-1] % n:
+            raise ValueError(
+                f"voxel axis ({Y.shape[-1]}) not divisible by mesh size "
+                f"({n}); use pad_voxels first")
+        kw.setdefault("voxel_shards", n)
+        return _nested_cv_step_sharded(mesh, X, Y, X_test, Y_test, *args,
+                                       **kw)
+
+    return step
 
 
 def equal_size_folds(n_samples: int, n_folds: int, chunk_length: int,

@@ -26,8 +26,9 @@ train/test mode. Before extraction, the stories' responses are copied to
 the card on a side stream from pinned memory when they total at most
 4 GiB (the JAX trainer's budget), so the copy overlaps extraction.
 
-Not ported yet (ROADMAP.md): the CLI that builds the trainer (A14) and
-mesh-sharded extraction (A15).
+Voxel sharding and tensor-parallel extraction come in through the model's
+`mesh`/`n_devices` and the extractors' `mesh` (parallel/mesh.py,
+parallel/tp.py); the trainer itself is the same either way.
 """
 
 import logging

@@ -134,11 +134,21 @@ def test_validation_errors_match_jax(case):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(n_devices=2)])
 def test_mesh_is_not_ported(kw):
+    """The mesh is ported: an object that is not a Mesh is refused, and
+    n_devices=2 (two CPU entries) gives the JAX package's 2-device mesh
+    fit: its (gamma, alpha) picks and solver_paths (spectral refit)."""
     Xs, Y, _, _ = banded_problem(1, T=40, V=3)
-    with pytest.raises(NotImplementedError, match="A15"):
-        fit_banded_ridge(Xs, Y, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A15"):
-        BandedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y)
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="Mesh"):
+            fit_banded_ridge(Xs, Y, device="cpu", **kw)
+        with pytest.raises(TypeError, match="Mesh"):
+            BandedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y)
+        return
+    want = jb.fit_banded_ridge(Xs, Y, **kw)
+    assert want[0]["solver_paths"]["banded_refit"] == "spectral"
+    assert_fits_match(fit_banded_ridge(Xs, Y, device="cpu", **kw), want)
+    assert_fits_match(
+        BandedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y), want)
 
 
 # ---- the fit's routes -----------------------------------------------------

@@ -342,10 +342,45 @@ def test_main_errors_match_jax(drop, text, tmp_path):
     dict(stacking=True, n_devices=2),
 ], ids=["tp_model_lm", "tp_data_speech", "n_devices", "banded_n_devices",
         "stacking_n_devices"])
-def test_not_ported_raise(overrides, data, tmp_path):
-    config = _config(data, tmp_path, device="cpu", **overrides)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tcli.run(config)
+def test_not_ported_raise(overrides, data, tmp_path,
+                          gpt2_pair):  # noqa: F811
+    """The mesh flags are ported: each run gives the JAX CLI's metrics
+    with the same flags (the JAX side on its 8 virtual CPU devices, the
+    port on entries of the CPU); the speech mesh is held at the extractor
+    config the CLI builds (its forward: tests/test_torch_tp.py)."""
+    config = _config(data, tmp_path, **overrides)
+    if "speech" in config["modalities"]:
+        want = jcli.build_feature_config("speech", "w2v", dict(config))
+        got = tcli.build_feature_config("speech", "w2v",
+                                        dict(config, device="cpu"))
+        assert got["mesh"].shape == dict(want["mesh"].shape) == {
+            "data": 2, "model": 1}
+        assert {d.type for d in got["mesh"].devices.flat} == {"cpu"}
+        return
+    if "language_model" in config["modalities"]:
+        fm, tm = gpt2_pair
+        config = _config(data, tmp_path, pickle="lm", layer_idx=1,
+                         lookback=8, last_token=True,
+                         **dict(overrides, model_names=["tiny-gpt2"]))
+        out = {}
+        for name, cli, extra, model in (
+                ("jax", jcli, {"backend": "flax"}, fm),
+                ("torch", tcli, {}, tm)):
+            cfg = dict(config, cache_dir=str(tmp_path / f"{name}_cache"),
+                       results_dir=str(tmp_path / f"{name}_results"),
+                       extractor_config_overrides={"language_model": dict(
+                           model=model, tokenizer=HashStubTokenizer(),
+                           batch_size=64, **extra)})
+            if name == "torch":
+                cfg["device"] = "cpu"
+            out[name] = cli.run(cfg)
+        _assert_parity(out["jax"], out["torch"])
+        return
+    want, got = _both(config, tmp_path)
+    _assert_parity(want, got)
+    if config.get("stacking"):
+        np.testing.assert_allclose(got["stack_weights_mean"],
+                                   want["stack_weights_mean"], atol=1e-4)
 
 
 def test_tp_flags_are_ignored_without_a_sharded_model(data, tmp_path):
@@ -374,7 +409,11 @@ def test_nested_cv_model_mesh_arguments(full_cv):
                                    "cpu")
     assert (positional.mesh, positional.n_devices, positional.device) == (
         None, None, "cpu")
-    for model in (tcv.NestedCVModel(n_devices=2, device="cpu"),
-                  tcv.NestedCVModel(mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A15"):
-            model.fit_predict(X, Y, **kw)
+    sharded = tcv.NestedCVModel(n_devices=2, device="cpu").fit_predict(
+        X, Y, **kw)
+    assert sharded[0]["best_alphas"] == plain[0]["best_alphas"]
+    np.testing.assert_allclose(sharded[0]["correlations"],
+                               plain[0]["correlations"], atol=1e-5)
+    with pytest.raises(TypeError, match="Mesh"):
+        tcv.NestedCVModel(mesh=object(), device="cpu").fit_predict(X, Y,
+                                                                   **kw)

@@ -215,8 +215,17 @@ def test_errors_match_jax(gpt2_pair):
         ex.extract_features(["a b"], layer_idx=-4)
     with pytest.raises(ValueError, match="torch models"):
         _port_extractor(tm, backend="flax")
-    with pytest.raises(NotImplementedError, match="A15"):
+    # The mesh is ported (tests/test_torch_tp.py); these are its guards.
+    from litcoder_core_torch.parallel.mesh import make_mesh
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         _port_extractor(tm, mesh=object())
+    with pytest.raises(ValueError, match="axes"):
+        _port_extractor(tm, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="mesh's devices"):
+        _port_extractor(tm, mesh=make_lm_mesh(1, 2,
+                                              devices=["cuda:0"] * 2))
 
 
 def test_encode_and_injection(gpt2_pair):

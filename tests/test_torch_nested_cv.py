@@ -145,16 +145,12 @@ def test_ties_go_to_the_first_alpha():
     dict(X_test=None, y_test=None, method="eigh"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_paths_raise(kwargs):
-    """Only mesh sharding (n_devices) is still unported and raises; every
-    other argument here once raised and now runs the JAX package's route:
-    the same solver_paths and alphas, correlations within 2e-3."""
+    """Every argument here once raised and now runs the JAX package's
+    route: the same solver_paths and alphas, correlations within 2e-3
+    (n_devices=2: two CPU mesh entries against JAX's 2-device mesh)."""
     X, Y, Xt, Yt = _problem(T=100, D=5, V=3, Tp=20)
     kw = dict(X_test=Xt, y_test=Yt, chunk_length=10)
     kw.update(kwargs)
-    if "n_devices" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcv.fit_nested_cv(X, Y, device="cpu", **kw)
-        return
     mt, _, at = tcv.fit_nested_cv(X, Y, device="cpu", **kw)
     mj, _, aj = jcv.fit_nested_cv(X, Y, **kw)
     assert mt["solver_paths"] == mj["solver_paths"]

@@ -41,7 +41,11 @@ from litcoder_core_torch.models import (
     variance_partitioning,
 )
 from litcoder_core_torch.ops.lanczos_fir import lanczos_fir
-from litcoder_core_torch.parallel import nested_cv_step
+from litcoder_core_torch.parallel import (
+    make_mesh,
+    make_nested_cv_step,
+    nested_cv_step,
+)
 from litcoder_core_torch.utils.testing import HashStubTokenizer
 
 torch.set_num_threads(2)
@@ -64,7 +68,8 @@ def test_every_module_imports_without_jax():
     assert "litcoder_core_torch.trainer" in names
     assert "litcoder_core_torch.ops.lanczos_fir" in names
     assert "litcoder_core_torch.models.normalizer" in names
-    for name in ("parallel.step", "ops.segment",
+    for name in ("parallel.step", "parallel.mesh", "parallel.tp",
+                 "ops.segment",
                  "assembly.assembly_loader", "features.language_model",
                  "features.convert", "features.custom", "utils.caches",
                  "utils.testing", "utils.core", "plotting.plotting_utils",
@@ -211,6 +216,14 @@ def _entry_points(tmp_path):
             np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
             [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
                 2, 10)),
+        "fit_nested_cv (n_devices)": lambda: fit_nested_cv(
+            X, Y, X, Y, chunk_length=4, n_inner_folds=2, n_devices=2),
+        "make_mesh": lambda: make_mesh(),
+        "make_nested_cv_step (mesh)": lambda: make_nested_cv_step(
+            make_mesh(devices=["cpu"] * 2))(
+            np.zeros((40, 2)), Y, np.zeros((8, 2)), np.zeros((8, 2)),
+            [1.0], np.arange(20).reshape(2, 10), np.arange(20, 40).reshape(
+                2, 10)),
     }
 
 
@@ -232,7 +245,9 @@ def _entry_points(tmp_path):
                                   "cli.run", "cli.main",
                                   "LinearPredictivityModel.fit",
                                   "SklearnPredictivityModel.fit",
-                                  "nested_cv_step"])
+                                  "nested_cv_step",
+                                  "fit_nested_cv (n_devices)", "make_mesh",
+                                  "make_nested_cv_step (mesh)"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """With no card, the default device raises; nothing runs on the CPU.
     (torch.cuda.is_available is forced False so the test means the same

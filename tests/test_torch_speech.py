@@ -263,8 +263,16 @@ def test_errors_match_jax(w2v2_pair):
                            **bad))
     with pytest.raises(ValueError, match="torch models"):
         _port(tm, fe, backend="flax")
-    with pytest.raises(NotImplementedError, match="A15"):
+    # The mesh is ported (tests/test_torch_tp.py); these are its guards.
+    from litcoder_core_torch.parallel.mesh import make_mesh
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         _port(tm, fe, mesh=object())
+    with pytest.raises(ValueError, match="axes"):
+        _port(tm, fe, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="mesh's devices"):
+        _port(tm, fe, mesh=make_lm_mesh(1, 2, devices=["cuda:0"] * 2))
 
 
 @pytest.mark.parametrize("pool", ["last", "mean"])

@@ -230,8 +230,18 @@ def test_validation_errors_match_jax(case):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(n_devices=2)])
 def test_mesh_is_not_ported(kw):
+    """The mesh is ported: an object that is not a Mesh is refused, and
+    n_devices=2 (two CPU entries) gives the JAX package's 2-device mesh
+    fit: its picks, simplex weights and solver_paths (pervoxel_chol)."""
     Xs, Y, _, _ = two_spaces(T=60, V=4)
-    with pytest.raises(NotImplementedError, match="A15"):
-        fit_stacked_ridge(Xs, Y, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A15"):
-        StackedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y)
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="Mesh"):
+            fit_stacked_ridge(Xs, Y, device="cpu", **kw)
+        with pytest.raises(TypeError, match="Mesh"):
+            StackedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y)
+        return
+    want = js.fit_stacked_ridge(Xs, Y, **kw)
+    assert want[0]["solver_paths"]["oof_refit"] == "pervoxel_chol"
+    assert_stacks_match(fit_stacked_ridge(Xs, Y, device="cpu", **kw), want)
+    assert_stacks_match(
+        StackedRidgeModel(device="cpu", **kw).fit_predict(Xs, Y), want)

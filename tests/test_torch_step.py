@@ -302,8 +302,9 @@ def test_step_errors_match_jax():
 
 
 def test_make_nested_cv_step():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_nested_cv_step(mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        tstep.make_nested_cv_step(mesh=object(), device="cpu")(
+            *_problem(407), GRID, *jstep.equal_size_folds(407, 5, 10))
     X, Y, Xt, Yt = _problem(407)
     tr, va = jstep.equal_size_folds(407, 5, 10, seed=0)
     bound = tstep.make_nested_cv_step(method="chol", device="cpu")

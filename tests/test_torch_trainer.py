@@ -232,11 +232,12 @@ def test_unported_trainer_options_raise(jax_assembly, kv_path, tmp_path):
                                      np.arange(2.0), method="average",
                                      split_indices=[0, 0, 1], device="cpu")
     assert tuple(out.shape) == (2, 1)
-    # A speech mesh waits for ROADMAP A15; speech itself is ported.
-    with pytest.raises(NotImplementedError, match="A15"):
+    # A speech mesh is ported: the factory passes it on, and the
+    # extractor refuses anything but a Mesh before it loads a model.
+    with pytest.raises(TypeError, match="Mesh"):
         T.FeatureExtractorFactory.create_extractor(
             "speech", "m", {"chunk_size": 0.1, "context_size": 16.0,
-                            "mesh": object()})
+                            "mesh": object(), "device": "cpu"})
     assert (T.FeatureExtractorFactory.get_supported_modalities()
             == J.FeatureExtractorFactory.get_supported_modalities()
             == ["language_model", "speech", "wordrate", "embeddings"])
