@@ -229,13 +229,39 @@ Phases, one line each; any failure exits non-zero and prints no result:
      on 99.9% of the voxels; (e) phase 15 (a)'s argv with --n_devices 1
      (85 launches, its alphas and median r exactly), and --tp_data 1
      --tp_model 2 refused by make_lm_mesh on one card.
-Phases 5, 6, 12, 13, 14 (a)-(b), 15 (a)-(c) and 16's trainers set the
-kernel's launch count to 0 just before they run and read it just after; phases 7-10 call
-the fit or the step directly and print each fit's wall, median r, route
-and peak device memory. The last two lines are a JSON record of the kernel
-(launches on the main path, on the Narratives, LM, speech, banded,
-command-line and mesh paths; times at the Narratives and the speech
-shapes) and
+ 17. the examples on the card: the torch twins of examples/*.py and of the
+     quickstart notebook, each called with device="cuda", and the
+     benchmark guard, on earlier phases' artefacts: (a)
+     examples/torch_train_simple.py on phase 15 (a)'s pickle against the
+     word-rate trainer built here (the same alphas, median r within 1e-6);
+     (b) torch_example.py --modality language_model --layer_idx 9
+     --lookback 256 on phase 15 (c)'s pickle of phase 12's stories, with
+     phase 12's model and activation cache (12 kernel launches, phase 12's
+     alphas on at least 99.9% of the voxels); (c) torch_sweep_grid.py over
+     layers 3 and 9 of (a)'s pickle (one summary row per grid point; a
+     second call resumes in under 1 s with the same rows); (d)
+     torch_wide_all_layer_fit.py at full width: every layer of a
+     random-init GPT2Config() (12 x 768) over 4,000 words (about 700 TRs),
+     D = 36,864 with 4 delays, V = 20,484 (the log names the dual search,
+     median r above WIDE_MEDIAN_R_FLOOR), and at its default size on the
+     card and the CPU (the same alphas, median r within 1e-3); (e)
+     torch_multichip_fit.py on 8 entries of cuda:0 against the machine's
+     one card (the same alphas in both fits); (f) torch_tp_extraction.py
+     on a (2, 2) mesh of cuda:0 (one kernel launch per story) against the
+     same trainer unsharded (median r within 1e-3); (g)
+     torch_quickstart.ipynb's code cells in order (one launch, its fused
+     cell within 1e-4 of the two-stage design); (h)
+     utils/benchguard.py: probe_backend() returns (True, 0), and
+     run_guarded over a live command that prints one JSON line returns
+     that line, not stale, and writes its snapshot. Prints each run's
+     wall, launches and median r, and phase 17's wall.
+Phases 5, 6, 12, 13, 14 (a)-(b), 15 (a)-(c), 16's trainers and 17's twins
+set the kernel's launch count to 0 just before they run and read it just
+after; phases 7-10 call the fit or the step directly and print each fit's
+wall, median r, route and peak device memory. The last two lines are a
+JSON record of the kernel (launches on the main path, on the Narratives,
+LM, speech, banded, command-line, mesh and example paths; times at the
+Narratives and the speech shapes) and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -3561,6 +3587,353 @@ def mesh_phase(asm, kv_path, lm_asm, workdir, smi_line, northstar_fit,
     return launches
 
 
+# Phase 17: the examples' torch twins (examples/torch_*.py and
+# examples/torch_quickstart.ipynb) and the benchmark guard on the card,
+# reusing earlier phases' artefacts. (a) torch_train_simple on phase 15
+# (a)'s pickle against the same word-rate trainer built here: the same
+# alphas, median r within 1e-6. (b) torch_example with --modality
+# language_model on phase 15 (c)'s pickle of phase 12's stories, phase 12's
+# model passed in and its activation cache: 12 launches, phase 12's alphas
+# on 99.9% of the voxels. (c) torch_sweep_grid over layers 3 and 9 of (a)'s
+# pickle: one summary row per grid point, and a second call resumes in
+# under 1 s with the same rows. (d) torch_wide_all_layer_fit at full width:
+# every layer of a random-init GPT2Config() (12 x 768) over 4,000 words
+# (about 700 TRs), so D = 36,864 with 4 delays, against V = 20,484: the log
+# names the dual search and the median r beats WIDE_MEDIAN_R_FLOOR; then at
+# its default size on the card and the CPU: the same alphas, median r
+# within 1e-3. (e) torch_multichip_fit on 8 entries of cuda:0 against the
+# machine's one card: the same alphas in both fits. (f) torch_tp_extraction
+# on a (2, 2) mesh of cuda:0 (one launch per story) against the same
+# trainer unsharded: median r within 1e-3. (g) the notebook's code cells in
+# order (its fused cell launches the kernel once). (h) the benchmark guard:
+# probe_backend() is (True, 0) and run_guarded over a live command that
+# prints one JSON line returns that line, not stale, and writes its
+# snapshot; a stale line fails the phase. Each twin's run sets the kernel's
+# count to 0 just before and reads it just after.
+EX_SWEEP_LAYERS = [3, 9]
+EX_WIDE_WORDS, EX_WIDE_VOXELS = 4000, 20484
+EX_SAME_R_ATOL, EX_TINY_R_ATOL, EX_RESUME_SECONDS = 1e-6, 1e-3, 1.0
+# (d): Y = X w + 0.2 e with w ~ N(0, 1/D), so a voxel's signal variance is
+# the mean square of a design row (0.43 at GPT-2's width with 2 blocks, a
+# CPU run of the twin) against the noise's 0.04: r could reach about 0.95.
+# A dual fit of about 560 rows recovers part of it (median r 0.52 in that
+# run); chance for about 140 test rows is +-0.085 per voxel and about 0 for
+# the median of 20,484. A median r above 0.2 shows the fit found the
+# signal.
+WIDE_MEDIAN_R_FLOOR = 0.2
+# (h): one probe, no retries, and a live command that prints one JSON line
+# computed on the card.
+GUARD_ENV = {"LITCODER_BENCH_PROBE_TIMEOUT_S": "120",
+             "LITCODER_BENCH_PROBE_DEADLINE_S": "1"}
+GUARD_LIVE = ("import json, torch; x = torch.ones((256, 256), device='cuda');"
+              " print(json.dumps({'metric': 'ones_matmul_sum', 'value': "
+              "float((x @ x).sum()), 'unit': 'sum', 'vs_baseline': None}))")
+
+
+def example_module(name):
+    """examples/<name>.py imported from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(REPO, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def counted_run(fn, *args, **kw):
+    """(fn's result, the kernel's launches in it, wall seconds)."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_fir as lf
+
+    torch.cuda.synchronize()
+    lf.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, lf.launches, time.perf_counter() - t0
+
+
+def workdir_of(workdir, label):
+    path = os.path.join(workdir, label)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def same_alphas(a, b):
+    return np.array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32))
+
+
+def ex_train_simple(asm_path, workdir):
+    """(a): the twin against the word-rate trainer built here."""
+    from litcoder_core_torch import (
+        AbstractTrainer,
+        Downsampler,
+        FeatureExtractorFactory,
+        NestedCVModel,
+        load_assembly,
+    )
+
+    twin = example_module("torch_train_simple")
+    with contextlib.chdir(workdir_of(workdir, "ex_train_simple")):
+        got, launches, wall = counted_run(twin.main, [asm_path],
+                                          device="cuda")
+        trainer = AbstractTrainer(
+            assembly=load_assembly(asm_path),
+            feature_extractors=[FeatureExtractorFactory.create_extractor(
+                "wordrate", "wordrate", {}, cache_dir="direct_cache")],
+            downsampler=Downsampler(), model=NestedCVModel(device="cuda"),
+            fir_delays=[1, 2, 3, 4], trimming_config=dict(LEBEL_TRIM),
+            use_train_test_split=True, dataset_type="lebel",
+            logger_backend="none", results_dir="direct_results",
+            downsample_config={}, device="cuda")
+        want = trainer.train()
+    dm = abs(got["median_score"] - want["median_score"])
+    same = same_alphas(got["best_alphas"], want["best_alphas"])
+    print(f"  (a) torch_train_simple: main() {wall:.3f} s, lanczos_fir "
+          f"launches {launches}, median r {got['median_score']:.6f}, "
+          f"solver_paths {got['solver_paths']}; against the trainer built "
+          f"directly: same alphas {same}, |d median r| {dm:.3e} (bar "
+          f"{EX_SAME_R_ATOL})", flush=True)
+    if not same or dm > EX_SAME_R_ATOL:
+        raise AssertionError("(a) the twin's fit differs")
+    return launches
+
+
+def ex_example(workdir, m_lm):
+    """(b): --modality language_model on phase 12's stories, model and
+    cache (phase 15 (c) wrote the pickle)."""
+    from litcoder_core_torch.utils.testing import HashStubTokenizer
+
+    twin = example_module("torch_example")
+    model, desc = lm_model(GPT2_SMALL)
+    argv = ["--assembly_path", os.path.join(workdir, "lm12.pkl"),
+            "--modality", "language_model", "--model_name",
+            "gpt2-random-init", "--layer_idx", str(LM_LAYER), "--lookback",
+            str(LM_LOOKBACK), "--last_token", "--cache_dir",
+            os.path.join(workdir, "lm_cache"), "--results_dir",
+            os.path.join(workdir, "ex_example_results"), "--logger_backend",
+            "none"]
+    got, launches, wall = counted_run(twin.main, argv, device="cuda",
+                                      model=model,
+                                      tokenizer=HashStubTokenizer())
+    share = float(np.mean(np.asarray(got["best_alphas"])
+                          == np.asarray(m_lm["best_alphas"])))
+    print(f"  (b) torch_example, {desc}: main() {wall:.3f} s, lanczos_fir "
+          f"launches {launches}, median r {got['median_score']:.6f} "
+          f"(phase 12: {m_lm['median_score']:.6f}), the same alpha as "
+          f"phase 12 on {share:.4%} of the voxels", flush=True)
+    check_metrics(got, N_VERTICES, np.logspace(-1, 8, 10), LM_PATHS)
+    if launches != LM_STORIES or share < MESH_SAME_SHARE:
+        raise AssertionError("(b) the twin's LM run differs from phase 12")
+    return launches
+
+
+def ex_sweep(asm_path, workdir):
+    """(c): the grid sweep over (a)'s pickle, then its resume."""
+    twin = example_module("torch_sweep_grid")
+    argv = [asm_path, "--layers", *map(str, EX_SWEEP_LAYERS), "--out",
+            workdir_of(workdir, "ex_sweep")]
+    (rows, table), launches, wall = counted_run(twin.main, argv,
+                                                device="cuda")
+    t0 = time.perf_counter()
+    again, _ = twin.main(argv, device="cuda")
+    resume = time.perf_counter() - t0
+    for line in table.splitlines():
+        print(f"  (c) {line}", flush=True)
+    print(f"  (c) torch_sweep_grid: {len(rows)} grid points in {wall:.3f} "
+          f"s, lanczos_fir launches {launches}; second call {resume:.3f} s "
+          f"(bar {EX_RESUME_SECONDS}), the same rows {again == rows}",
+          flush=True)
+    if (any(r["error"] is not None for r in rows)
+            or [r["layer_idx"] for r in rows] != EX_SWEEP_LAYERS
+            or len(table.splitlines()) != 2 + len(rows)):
+        raise AssertionError(f"(c) sweep rows {rows}")
+    if again != rows or not resume < EX_RESUME_SECONDS:
+        raise AssertionError("(c) the second call did not resume")
+    return launches
+
+
+def ex_wide(smi_line):
+    """(d): the all-layer dual fit at full width, then at the twin's
+    default size on the card and the CPU."""
+    import torch
+
+    twin = example_module("torch_wide_all_layer_fit")
+    model, desc = lm_model(GPT2_SMALL)
+    torch.cuda.reset_peak_memory_stats()
+    with LogLines("litcoder_core_torch.models.nested_cv",
+                  "alpha search path") as log:
+        got, launches, wall = counted_run(
+            twin.main, [], device="cuda", model=model,
+            n_words=EX_WIDE_WORDS, n_voxels=EX_WIDE_VOXELS)
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    T, D = got["design"]
+    m = got["metrics"]
+    print(f"  (d) torch_wide_all_layer_fit, {desc}: {got['n_layers']} layers "
+          f"x {GPT2_SMALL['n_embd']} x 4 delays, design T={T} x D={D}, "
+          f"V={EX_WIDE_VOXELS}; main() {wall:.3f} s, lanczos_fir launches "
+          f"{launches}; log: {log.messages}; median r "
+          f"{m['median_score']:.6f} (floor {WIDE_MEDIAN_R_FLOOR}), "
+          f"n_significant {m['n_significant']}, {got['n_distinct_alphas']} "
+          f"distinct alphas, solver_paths {m['solver_paths']}, "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), "
+          f"card: {smi_line}", flush=True)
+    corr = np.asarray(m["correlations"])
+    if (D != got["n_layers"] * GPT2_SMALL["n_embd"] * 4 or not D > T
+            or corr.shape != (EX_WIDE_VOXELS,)
+            or not np.all(np.isfinite(corr))):
+        raise AssertionError(f"(d) design {got['design']}, correlations "
+                             f"{corr.shape}")
+    if not any("dual" in msg for msg in log.messages) \
+            or m["solver_paths"]["alpha_search"] != "dual":
+        raise AssertionError("(d) the fit did not take the dual search")
+    if not m["median_score"] > WIDE_MEDIAN_R_FLOOR:
+        raise AssertionError(f"(d) median r {m['median_score']}")
+    tiny, tiny_launches, _ = counted_run(twin.main, [], device="cuda")
+    cpu = twin.main([], device="cpu")
+    same = same_alphas(tiny["best_alphas"], cpu["best_alphas"])
+    dm = abs(tiny["metrics"]["median_score"] - cpu["metrics"]["median_score"])
+    print(f"  (d) default size, design {tiny['design']}: card vs CPU, same "
+          f"alphas {same}, |d median r| {dm:.3e} (bar {EX_TINY_R_ATOL}), "
+          f"median r {tiny['metrics']['median_score']:.6f}", flush=True)
+    if not same or dm > EX_TINY_R_ATOL:
+        raise AssertionError("(d) card and CPU disagree at the default size")
+    return launches + tiny_launches
+
+
+def ex_multichip():
+    """(e): 8 entries of cuda:0 against the machine's cards (one)."""
+    import torch
+
+    from litcoder_core_torch.parallel import make_mesh
+
+    twin = example_module("torch_multichip_fit")
+    got, launches, wall = counted_run(
+        twin.main, [], device="cuda",
+        mesh=make_mesh(devices=["cuda:0"] * MESH_ENTRIES_FIT))
+    one = twin.main([], device="cuda")
+    same = (same_alphas(got["best_alphas"], one["best_alphas"]),
+            same_alphas(got["best_alphas_cv"], one["best_alphas_cv"]))
+    print(f"  (e) torch_multichip_fit on {got['n_devices']} x cuda:0: main() "
+          f"{wall:.3f} s, median r {got['metrics']['median_score']:.6f}, "
+          f"full CV {got['metrics_cv']['median_score']:.6f}; against "
+          f"n_devices={one['n_devices']}: the same alphas (train/test, full "
+          f"CV) {same}", flush=True)
+    if one["n_devices"] != torch.cuda.device_count() or not all(same):
+        raise AssertionError("(e) the sharded fits differ")
+    return launches
+
+
+def ex_tp(workdir):
+    """(f): the twin on a (2, 2) mesh of cuda:0 against its trainer
+    unsharded."""
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+    twin = example_module("torch_tp_extraction")
+    mesh = make_lm_mesh(*MESH_LM_SHAPE, devices=["cuda:0"] * 4)
+    with contextlib.chdir(workdir_of(workdir, "ex_tp")):
+        got, launches, wall = counted_run(twin.main, [], device="cuda",
+                                          mesh=mesh)
+        plain = twin.make_trainer("cuda", None, twin.tiny_gpt2(),
+                                  cache_dir="cache_plain",
+                                  results_dir="results_plain").train(
+            chunk_length=10, n_inner_folds=3)
+    n_stories = len(twin.make_assembly().stories)
+    dm = abs(got["metrics"]["median_score"] - plain["median_score"])
+    print(f"  (f) torch_tp_extraction on {got['mesh_shape']}: main() "
+          f"{wall:.3f} s, lanczos_fir launches {launches} ({n_stories} "
+          f"stories), median r {got['metrics']['median_score']:.6f}; "
+          f"unsharded {plain['median_score']:.6f}, |d| {dm:.3e} (bar "
+          f"{EX_TINY_R_ATOL})", flush=True)
+    if launches != n_stories or dm > EX_TINY_R_ATOL:
+        raise AssertionError("(f) the TP twin differs")
+    return launches
+
+
+def run_notebook(path):
+    """The notebook's code cells, in order, in one namespace."""
+    with open(path) as f:
+        cells = json.load(f)["cells"]
+    ns = {}
+    for cell in cells:
+        if cell["cell_type"] == "code":
+            exec(compile("".join(cell["source"]), path, "exec"), ns)
+    return ns
+
+
+def ex_notebook():
+    """(g): the notebook's code cells on the card."""
+    path = os.path.join(REPO, "examples", "torch_quickstart.ipynb")
+    ns, launches, wall = counted_run(run_notebook, path)
+    gap = float((ns["fused"] - ns["X"]).abs().max())
+    corr = ns["correlations"]
+    print(f"  (g) torch_quickstart.ipynb: {wall:.3f} s, lanczos_fir launches "
+          f"{launches}, fused vs two stages {gap:.3e} (bar {KERNEL_ATOL}), "
+          f"median r {ns['metrics']['median_score']:.6f}, the step's "
+          f"{float(np.median(corr)):.6f} over {corr.shape[0]} voxels",
+          flush=True)
+    if launches != 1 or not gap <= KERNEL_ATOL or corr.shape != (512,) \
+            or not np.all(np.isfinite(corr)):
+        raise AssertionError("(g) the notebook's results are off")
+    return launches
+
+
+def ex_benchguard(workdir):
+    """(h): a live probe and a live run through the guard."""
+    import io
+
+    from litcoder_core_torch.utils import benchguard
+
+    saved = {k: os.environ.get(k) for k in GUARD_ENV}
+    os.environ.update(GUARD_ENV)
+    try:
+        t0 = time.perf_counter()
+        probe = benchguard.probe_backend()
+        probe_s = time.perf_counter() - t0
+        snap_path = os.path.join(workdir, "ex_bench_snapshot.json")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = benchguard.run_guarded([sys.executable, "-c", GUARD_LIVE],
+                                        snap_path, live_timeout_s=300)
+        guarded_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    line = buf.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    snap = benchguard.load_snapshot(snap_path)
+    print(f"  (h) benchguard: probe_backend() {probe} in {probe_s:.1f} s; "
+          f"run_guarded rc {rc} in {guarded_s:.1f} s: {line}; snapshot "
+          f"written {snap is not None}", flush=True)
+    if probe != (True, 0):
+        raise AssertionError(f"(h) the probe failed: {probe}")
+    if rc != 0 or result.get("stale") or result["value"] != 256.0 ** 3:
+        raise AssertionError(f"(h) the guard's line is not live: {line}")
+    if snap is None or snap["result"] != result:
+        raise AssertionError("(h) the guard did not write its snapshot")
+
+
+def examples_phase(workdir, cli_args, m_lm, smi_line):
+    """Phase 17 (a)-(h). Returns the kernel's launches in the twins' runs."""
+    t0 = time.perf_counter()
+    asm_path = cli_args[cli_args.index("--assembly_path") + 1]
+    counts = [ex_train_simple(asm_path, workdir), ex_example(workdir, m_lm),
+              ex_sweep(asm_path, workdir), ex_wide(smi_line), ex_multichip(),
+              ex_tp(workdir), ex_notebook()]
+    ex_benchguard(workdir)
+    print(f"  phase 17 lanczos_fir launches {sum(counts)} ((a)-(g): "
+          f"{' + '.join(map(str, counts))}); phase 17 wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return sum(counts)
+
+
 def main() -> int:
     import torch
 
@@ -3643,6 +4016,10 @@ def main() -> int:
             asm, kv_path, lm_asm, workdir, smi_line, northstar_fit,
             (m_banded, m_stacked), step_auto, (m_lm, lm_rate), audio_path,
             (cli_args, m_cli))
+
+        phase("17 the examples on the card")
+        record["launches_examples"] = examples_phase(workdir, cli_args, m_lm,
+                                                     smi_line)
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [record]}), flush=True)

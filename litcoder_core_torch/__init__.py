@@ -24,7 +24,8 @@ sweeps (sweeps.run_layer_sweep, sweeps.run_grid_sweep), and the
 least-squares and scikit-learn models (models.LinearPredictivityModel,
 models.SklearnPredictivityModel), and the scale-out layer (parallel: the
 1-D voxel mesh of the fits and the step, and the ('data', 'model') tensor-
-parallel mesh of the extractors; a mesh may repeat a device). Optional
+parallel mesh of the extractors; a mesh may repeat a device), and the
+benchmark guard (utils.benchguard). Optional
 packages (transformers, tensorboard,
 matplotlib, seaborn, wandb, nibabel, nilearn, soundfile, scikit-learn) are
 imported only where they are used; pandas is not needed.

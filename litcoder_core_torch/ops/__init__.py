@@ -21,7 +21,10 @@ from litcoder_core_torch.ops.segment import (
     segment_sum_pool,
 )
 from litcoder_core_torch.ops.stats import (
+    bh_fdrcorrection,
     bh_fdrcorrection_np,
+    fisher_combine_pvalues,
+    pearson_pvalues,
     pearson_pvalues_f64,
     pearson_r,
     trainer_zscore,
@@ -43,7 +46,10 @@ __all__ = [
     "segment_last_pool",
     "segment_mean_pool",
     "segment_sum_pool",
+    "bh_fdrcorrection",
     "bh_fdrcorrection_np",
+    "fisher_combine_pvalues",
+    "pearson_pvalues",
     "pearson_pvalues_f64",
     "pearson_r",
     "trainer_zscore",

@@ -10,14 +10,28 @@ the input's device. Random draws (permutation shifts, split halves) come
 from an explicit torch.Generator or are passed in.
 """
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 
-def zscore(x: torch.Tensor, dim: int = 0, eps: float = 1e-8,
-           ddof: int = 1) -> torch.Tensor:
-    """Z-score along `dim` with the model-level eps and ddof=1 by default
-    (the reference's torch path, encoding/models/ridge_utils.py:6-15)."""
+def _dim(dim, axis) -> int:
+    """The reduction axis of a function that takes torch's `dim` and the JAX
+    package's `axis` (default 0); both given must agree."""
+    if axis is None:
+        return 0 if dim is None else dim
+    if dim is not None and dim != axis:
+        raise TypeError(f"got dim={dim} and axis={axis}; pass one of them")
+    return axis
+
+
+def zscore(x: torch.Tensor, dim: Optional[int] = None, eps: float = 1e-8,
+           ddof: int = 1, *, axis: Optional[int] = None) -> torch.Tensor:
+    """Z-score along `dim` (or `axis`) with the model-level eps and ddof=1
+    by default (the reference's torch path,
+    encoding/models/ridge_utils.py:6-15)."""
+    dim = _dim(dim, axis)
     mean = torch.mean(x, dim=dim, keepdim=True)
     std = torch.std(x, dim=dim, keepdim=True, correction=ddof)
     return (x - mean) / (std + eps)
@@ -33,8 +47,11 @@ def trainer_zscore(x: torch.Tensor) -> torch.Tensor:
 
 
 def pearson_r(y_true: torch.Tensor, y_pred: torch.Tensor,
-              dim: int = 0) -> torch.Tensor:
-    """Columnwise Pearson correlation; NaN and inf become 0."""
+              dim: Optional[int] = None, *,
+              axis: Optional[int] = None) -> torch.Tensor:
+    """Columnwise Pearson correlation along `dim` (or `axis`); NaN and inf
+    become 0."""
+    dim = _dim(dim, axis)
     y_true = y_true.to(torch.float32)
     y_pred = y_pred.to(torch.float32)
     yt = y_true - torch.mean(y_true, dim=dim, keepdim=True)
@@ -104,8 +121,10 @@ def pearson_pvalues(r: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def pearson_r_pvalues(y_true: torch.Tensor, y_pred: torch.Tensor,
-                      dim: int = 0):
-    """(correlations, two-sided p-values) along `dim`."""
+                      dim: Optional[int] = None, *,
+                      axis: Optional[int] = None):
+    """(correlations, two-sided p-values) along `dim` (or `axis`)."""
+    dim = _dim(dim, axis)
     r = pearson_r(y_true, y_pred, dim=dim)
     return r, pearson_pvalues(r, y_true.shape[dim])
 
@@ -195,9 +214,11 @@ def permutation_pvalues(y_true: torch.Tensor, y_pred: torch.Tensor,
 
 
 def signed_square_corr(y_true: torch.Tensor, y_pred: torch.Tensor,
-                       dim: int = 0) -> torch.Tensor:
-    """Signed-sqrt R^2 (the use_corr=False score), variances with
-    correction=1 as the reference's torch path."""
+                       dim: Optional[int] = None, *,
+                       axis: Optional[int] = None) -> torch.Tensor:
+    """Signed-sqrt R^2 (the use_corr=False score) along `dim` (or `axis`),
+    variances with correction=1 as the reference's torch path."""
+    dim = _dim(dim, axis)
     y_true = y_true.to(torch.float32)
     y_pred = y_pred.to(torch.float32)
     resvar = torch.var(y_true - y_pred, dim=dim, correction=1)

@@ -7,6 +7,8 @@ card unless the caller asks for the CPU: with no card they raise instead
 of falling back."""
 
 import ast
+import importlib
+import json
 import os
 import pkgutil
 import subprocess
@@ -52,7 +54,8 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "litcoder_core_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
+NOTEBOOK = REPO / "examples" / "torch_quickstart.ipynb"
 
 
 def _modules():
@@ -81,11 +84,16 @@ def test_every_module_imports_without_jax():
                  "models.variance_partition", "models.linear",
                  "models.sklearn_model", "cli", "sweeps"):
         assert f"litcoder_core_torch.{name}" in names
+    examples = [str(p) for p in PORT_FILES if p.parent.name == "examples"]
+    assert len(examples) == 6
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        f"for path in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'pandas', 'litcoder_core_tpu'))\n"
         "assert not bad, bad\n"
@@ -126,10 +134,18 @@ def test_optional_packages_stay_unimported():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
+def _notebook_code(path):
+    cells = json.loads(path.read_text())["cells"]
+    return "\n\n".join("".join(c["source"]) for c in cells
+                        if c["cell_type"] == "code")
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [NOTEBOOK],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_source(path):
-    tree = ast.parse(path.read_text())
+    text = (_notebook_code(path) if path.suffix == ".ipynb"
+            else path.read_text())
+    tree = ast.parse(text)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -142,6 +158,52 @@ def test_no_jax_import_in_source(path):
             assert root not in ("jax", "jaxlib", "flax", "pandas",
                                 "litcoder_core_tpu"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_every_example_and_jax_module_has_a_twin():
+    """Each JAX module has a namesake in the port but the Pallas kernel's
+    (its twin is ops/lanczos_fir.py with csrc/lanczos_fir.cu), and each
+    example script and the notebook have an examples/torch_* twin."""
+    def modules(pkg):
+        root = REPO / pkg
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+    missing = modules("litcoder_core_tpu") - modules("litcoder_core_torch")
+    assert missing == {"ops/pallas_kernels.py"}
+    assert (REPO / "litcoder_core_torch/ops/lanczos_fir.py").exists()
+    examples = REPO / "examples"
+    for path in examples.iterdir():
+        if path.suffix in (".py", ".ipynb") and not path.name.startswith(
+                "torch_"):
+            assert (examples / f"torch_{path.name}").exists(), path.name
+
+
+def _packages(root):
+    pkg = importlib.import_module(root)
+    names = [root] + [info.name for info in pkgutil.walk_packages(
+        pkg.__path__, root + ".") if info.ispkg]
+    return [n[len(root):] for n in names]
+
+
+@pytest.mark.parametrize("sub", _packages("litcoder_core_torch"),
+                         ids=lambda s: s or "litcoder_core_torch")
+def test_all_is_a_superset_of_jax(sub):
+    """Every name a JAX package exports through __all__ its twin exports
+    too (the twins may export more)."""
+    jax_all = getattr(importlib.import_module("litcoder_core_tpu" + sub),
+                      "__all__", [])
+    torch_pkg = importlib.import_module("litcoder_core_torch" + sub)
+    assert set(jax_all) <= set(getattr(torch_pkg, "__all__", []))
+    for name in jax_all:
+        assert hasattr(torch_pkg, name), name
+
+
+def test_ops_exports_the_jax_p_value_helpers():
+    from litcoder_core_torch.ops import (  # noqa: F401
+        bh_fdrcorrection,
+        fisher_combine_pvalues,
+        pearson_pvalues,
+    )
 
 
 def _tiny_assembly():
