@@ -30,6 +30,14 @@ fp32 forwards run with TF32 off (the parity default); dtype='bfloat16'
 runs the forward on a bf16 copy of the weights, made once, and returns
 fp32 features. `transformers` is imported only where a model is loaded by
 name. The package gains no model: callers inject one or name a checkpoint.
+
+Spans (utils.profiling.annotate): `litcoder.lm.tokenize` (count windows),
+`litcoder.lm.dispatch` per batch (pad, bucket, enqueue; counts windows,
+real_tokens, padded_tokens), `litcoder.lm.fetch_wait` (the host's
+wait for a result; inside a dispatch when the queue is full, else in the
+final flush) and `litcoder.lm.collect` (the pooled layers copied into
+the returned arrays). `last_stage_seconds` takes tokenize_s and
+fetch_wait_s from those spans' clock readings.
 """
 
 import copy
@@ -48,6 +56,7 @@ from litcoder_core_torch.parallel.tp import (
     tp_forward,
 )
 from litcoder_core_torch.utils.device import matmul_conv_tf32, resolve_device
+from litcoder_core_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -107,8 +116,9 @@ class _PipelinedFetch:
     pinned host memory with a non-blocking copy on a side stream that waits
     on an event recorded after the forward; only when more than `depth`
     results are in flight does the host wait, on the oldest copy's event.
-    `fetch_wait_s` sums the host time spent waiting. CPU results are
-    handed over as they are.
+    `fetch_wait_s` sums the host time spent waiting (the
+    `litcoder.lm.fetch_wait` spans). CPU results are handed over as they
+    are.
     """
 
     def __init__(self, depth: int, sink):
@@ -141,11 +151,11 @@ class _PipelinedFetch:
 
     def _drain_one(self) -> None:
         host, done, _, meta = self._queue.popleft()
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-        arr = host.numpy()
-        self.fetch_wait_s += time.perf_counter() - t0
+        with annotate("litcoder.lm.fetch_wait") as span:
+            if done is not None:
+                done.synchronize()
+            arr = host.numpy()
+        self.fetch_wait_s += span.seconds
         self._sink(arr, meta)
 
     def flush(self) -> None:
@@ -340,41 +350,51 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         for bucket, group in batches.items():
             for s in range(0, len(group), self.batch_size):
                 batch = group[s:s + self.batch_size]
-                kmax = _pad_to_bucket(max(len(c) for c in batch),
-                                      granularity=8, minimum=8)
-                b = len(batch)
-                ids = np.full((b, bucket), pad_id, np.int64)
-                mask = np.zeros((b, bucket), np.int64)
-                pos = np.zeros((b, kmax), np.int64)
-                for row, chain in enumerate(batch):
-                    final = token_lists[chain[-1]][:bucket]
-                    ids[row, :len(final)] = final
-                    mask[row, :len(final)] = 1
-                    ends = [min(len(token_lists[j]), bucket) - 1
-                            for j in chain]
-                    pos[row, :len(chain)] = ends
-                    pos[row, len(chain):] = ends[-1]  # padded gathers
-                self.counts["chain_forwards"] += 1
-                self.counts["real_tokens"] += int(mask.sum())
-                self.counts["padded_tokens"] += mask.size
-                pipe.push(self._chain_forward(ids, mask, pos), batch)
+                with annotate("litcoder.lm.dispatch") as span:
+                    kmax = _pad_to_bucket(max(len(c) for c in batch),
+                                          granularity=8, minimum=8)
+                    b = len(batch)
+                    ids = np.full((b, bucket), pad_id, np.int64)
+                    mask = np.zeros((b, bucket), np.int64)
+                    pos = np.zeros((b, kmax), np.int64)
+                    for row, chain in enumerate(batch):
+                        final = token_lists[chain[-1]][:bucket]
+                        ids[row, :len(final)] = final
+                        mask[row, :len(final)] = 1
+                        ends = [min(len(token_lists[j]), bucket) - 1
+                                for j in chain]
+                        pos[row, :len(chain)] = ends
+                        pos[row, len(chain):] = ends[-1]  # padded gathers
+                    self._count_batch(span, "chain_forwards",
+                                      sum(len(c) for c in batch), mask)
+                    pipe.push(self._chain_forward(ids, mask, pos), batch)
         pipe.flush()
         self.last_stage_seconds["fetch_wait_s"] = round(
             self.last_stage_seconds.get("fetch_wait_s", 0.0)
             + pipe.fetch_wait_s, 4)
 
+    def _count_batch(self, span: annotate, forwards: str, windows: int,
+                     mask: np.ndarray) -> None:
+        """One batch's forward and tokens, in `counts` and its span's."""
+        real, padded = int(mask.sum()), mask.size
+        self.counts[forwards] += 1
+        self.counts["real_tokens"] += real
+        self.counts["padded_tokens"] += padded
+        span.counts.update(windows=windows, real_tokens=real,
+                           padded_tokens=padded)
+
     def _tokenize_timed(self, stimuli, nonempty) -> List[List[int]]:
-        t0 = time.perf_counter()
-        token_lists = [self._encode(stimuli[i]) for i in nonempty]
+        with annotate("litcoder.lm.tokenize", windows=len(nonempty)) as span:
+            token_lists = [self._encode(stimuli[i]) for i in nonempty]
         self.last_stage_seconds = {
-            "tokenize_s": round(time.perf_counter() - t0, 4),
+            "tokenize_s": round(span.seconds, 4),
             "fetch_wait_s": 0.0,
         }
         return token_lists
 
     def _run_batches(self, token_lists: List[List[int]]) -> np.ndarray:
         """Run all nonempty token lists; returns (n_layers+1, N, D)."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         n = len(token_lists)
         self.counts["windows"] += n
         pooled_all = np.zeros(
@@ -404,24 +424,24 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         i = 0
         while i < n_single:
             batch_idx = order[i:i + self.batch_size]
-            max_len = max(len(token_lists[j]) for j in batch_idx)
-            bucket = _pad_to_bucket(max_len)
-            ids = np.full((len(batch_idx), bucket), pad_id, np.int64)
-            mask = np.zeros((len(batch_idx), bucket), np.int64)
-            for row, j in enumerate(batch_idx):
-                toks = token_lists[j][:bucket]
-                ids[row, :len(toks)] = toks
-                mask[row, :len(toks)] = 1
-            self.counts["single_forwards"] += 1
-            self.counts["real_tokens"] += int(mask.sum())
-            self.counts["padded_tokens"] += mask.size
-            pipe.push(self._forward(ids, mask), batch_idx)
+            with annotate("litcoder.lm.dispatch") as span:
+                max_len = max(len(token_lists[j]) for j in batch_idx)
+                bucket = _pad_to_bucket(max_len)
+                ids = np.full((len(batch_idx), bucket), pad_id, np.int64)
+                mask = np.zeros((len(batch_idx), bucket), np.int64)
+                for row, j in enumerate(batch_idx):
+                    toks = token_lists[j][:bucket]
+                    ids[row, :len(toks)] = toks
+                    mask[row, :len(toks)] = 1
+                self._count_batch(span, "single_forwards", len(batch_idx),
+                                  mask)
+                pipe.push(self._forward(ids, mask), batch_idx)
             i += self.batch_size
         pipe.flush()
         self.last_stage_seconds["fetch_wait_s"] = round(
             self.last_stage_seconds.get("fetch_wait_s", 0.0)
             + pipe.fetch_wait_s, 4)
-        total = time.perf_counter() - t0
+        total = (time.perf_counter_ns() - t0) / 1e9
         self.last_stage_seconds["forward_total_s"] = round(total, 4)
         # Everything the host did while NOT blocked on the device:
         # tokenize happened earlier; this is pad/bucket/dispatch/writeback.
@@ -452,8 +472,9 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         if nonempty:
             token_lists = self._tokenize_timed(stimuli, nonempty)
             pooled = self._run_batches(token_lists)  # (L+1, N, D)
-            for layer in range(self.n_layers):
-                out[layer][nonempty] = pooled[layer + hs_offset]
+            with annotate("litcoder.lm.collect"):
+                for layer in range(self.n_layers):
+                    out[layer][nonempty] = pooled[layer + hs_offset]
         return out
 
     def extract_features(self, stimuli: Union[str, List[str]],
@@ -472,7 +493,8 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         if nonempty:
             token_lists = self._tokenize_timed(stimuli, nonempty)
             pooled = self._run_batches(token_lists)
-            out[nonempty] = pooled[layer_idx + hs_offset]
+            with annotate("litcoder.lm.collect"):
+                out[nonempty] = pooled[layer_idx + hs_offset]
         return out
 
     def _resolve_layer(self, layer_idx: int) -> int:

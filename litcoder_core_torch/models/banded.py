@@ -757,7 +757,8 @@ def fit_banded_ridge(
     Xc = torch.cat([as_f32(X, dev) for X in Xs], dim=1)
     G_shared = Xc.T @ Xc if chol_refit else None
 
-    timer = StageTimer(sync_fn=synchronizer(dev))
+    timer = StageTimer(sync_fn=synchronizer(dev),
+                       span_prefix="litcoder.banded")
     XtY_shared = None
     if stream_host:
         with timer.stage("xty_stream"):

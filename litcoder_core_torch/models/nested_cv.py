@@ -43,6 +43,16 @@ single_alpha's mean, the fast_scan guard's calibration voxels, on the
 padded axis as in the JAX package) meets on the first shard's device; the
 pad is stripped before the host statistics. A mesh replaces voxel
 chunking.
+
+Spans (utils.profiling.annotate; recorded only under a profiler): the fit
+is `litcoder.fit`; inside it `litcoder.fit.search` (each alpha search,
+counts folds, alphas, voxel_chunks), `litcoder.fit.refit` (refit,
+held-out predictions, r and the permutation null, ending with r and p on
+the host: that copy is where the host waits for the refit) and
+`litcoder.fit.host_stats` (host p-values, BH-FDR, Fisher, the majority
+mask, the metrics). `litcoder.fit.gram` (each X^T X, X^T Y or X X^T
+formed) and `litcoder.fit.lmax` (ridge.py) nest in whichever of those
+forms them.
 """
 
 import logging
@@ -78,6 +88,7 @@ from litcoder_core_torch.utils.device import (
     resolve_device,
     to_numpy,
 )
+from litcoder_core_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -196,7 +207,9 @@ def _fold_states_complement(X: torch.Tensor, union_idx: torch.Tensor,
     (F, Tva)), from one batched eigh of the (F, D, D) downdated Grams."""
     Xu = X[union_idx]
     Xva = X[val_idx]                                    # (F, Tva, D)
-    evals, evecs = torch.linalg.eigh((Xu.T @ Xu)[None] - Xva.mT @ Xva)
+    with annotate("litcoder.fit.gram"):
+        G = (Xu.T @ Xu)[None] - Xva.mT @ Xva
+    evals, evecs = torch.linalg.eigh(G)
     S = torch.sqrt(torch.clamp(torch.flip(evals, dims=[-1]), min=0.0))
     Vh = torch.flip(evecs, dims=[-1]).mT
     return S, Vh, S > singcutoff, Xva @ Vh.mT, Xva
@@ -210,13 +223,16 @@ def _score_chunk_complement_body(states, X_union: torch.Tensor,
     """(A, Vc) mean fold scores for one voxel chunk of the union rows;
     val_pos (F, Tva) are each fold's val rows as positions in the union."""
     S_all, Vh_all, good_all, PVh_all, Xva_all = states
-    XtY = X_union.T @ Y_union_chunk  # (D, Vc), shared by the folds
+    with annotate("litcoder.fit.gram"):
+        XtY = X_union.T @ Y_union_chunk  # (D, Vc), shared by the folds
     acc = 0
     for S, Vh, good, PVh, Xva, vp in zip(S_all, Vh_all, good_all, PVh_all,
                                          Xva_all, val_pos):
         Yva = Y_union_chunk[vp]
         inv_s = torch.where(good, 1.0 / torch.where(good, S, 1.0), 0.0)
-        UR = inv_s[:, None] * (Vh @ (XtY - Xva.T @ Yva))
+        with annotate("litcoder.fit.gram"):
+            XtY_tr = XtY - Xva.T @ Yva
+        UR = inv_s[:, None] * (Vh @ XtY_tr)
         nal = alphas * S[0] if normalpha else alphas
         acc = acc + score_alpha_grid(S, good, PVh, UR, Yva, nal,
                                      use_corr=use_corr, fast_scan=fast_scan)
@@ -320,15 +336,18 @@ def _score_alphas_from_factors(Z_all: torch.Tensor, XtY: torch.Tensor,
 def _fold_chol_factors(Xtr: torch.Tensor, Xva: torch.Tensor,
                        alphas: torch.Tensor, normalpha: bool):
     """Gather-form factors (arbitrary fold rows): G_tr = Xtr^T Xtr."""
-    return _chol_factors_from_gram(Xtr.T @ Xtr, Xva, alphas, normalpha)
+    with annotate("litcoder.fit.gram"):
+        G_tr = Xtr.T @ Xtr
+    return _chol_factors_from_gram(G_tr, Xva, alphas, normalpha)
 
 
 def _complement_fold_factors(Xva: torch.Tensor, G_all: torch.Tensor,
                              alphas: torch.Tensor,
                              normalpha: bool) -> torch.Tensor:
     """Complement-form factors: G_tr = G_all - Xva^T Xva, no train gather."""
-    Z_all, _ = _chol_factors_from_gram(G_all - Xva.T @ Xva, Xva, alphas,
-                                       normalpha)
+    with annotate("litcoder.fit.gram"):
+        G_tr = G_all - Xva.T @ Xva
+    Z_all, _ = _chol_factors_from_gram(G_tr, Xva, alphas, normalpha)
     return Z_all
 
 
@@ -370,7 +389,7 @@ def _score_fold_voxel_chunks(factors: torch.Tensor, Y: torch.Tensor,
             return _score_alphas_from_factors(factors, Yc[tr], Yc[va],
                                               use_corr, fast_scan)
         Yva_c = Yc[va]
-        with matmul_tf32(fast_scan):
+        with matmul_tf32(fast_scan), annotate("litcoder.fit.gram"):
             if form == "gather":
                 XtY = Xtr.T @ Yc[tr]
             else:
@@ -396,12 +415,13 @@ def _find_best_alphas_chol(X: torch.Tensor, Y: torch.Tensor, fold_splits,
     complement = _folds_cover_all_rows(fold_splits, X.shape[0])
     XtY_all = None
     if complement:
-        G_all = X.T @ X  # the JAX package's _full_gram
         # X^T Y is fold-independent; shared only when chunking is off (with
         # chunking on the caller asked for no persistent (D, V) buffer).
-        if voxel_chunk_size is None or voxel_chunk_size >= n_voxels:
-            with matmul_tf32(fast_scan):
-                XtY_all = X.T @ Y  # _xty_scan
+        with annotate("litcoder.fit.gram"):
+            G_all = X.T @ X  # the JAX package's _full_gram
+            if voxel_chunk_size is None or voxel_chunk_size >= n_voxels:
+                with matmul_tf32(fast_scan):
+                    XtY_all = X.T @ Y  # _xty_scan
     corr_sum = torch.zeros((alphas.shape[0], n_voxels), dtype=torch.float32,
                            device=dev)
     for train_idx, val_idx in fold_splits:
@@ -429,7 +449,8 @@ def _find_best_alphas_chol(X: torch.Tensor, Y: torch.Tensor, fold_splits,
 
 def _full_kernel(X: torch.Tensor) -> torch.Tensor:
     """K = X X^T, the dual search's one big product."""
-    return X @ X.T
+    with annotate("litcoder.fit.gram"):
+        return X @ X.T
 
 
 def _kernel_blocks(K_full: torch.Tensor, tr: torch.Tensor, va: torch.Tensor):
@@ -665,20 +686,31 @@ def _find_best_alphas(X: torch.Tensor, Y: torch.Tensor, fold_splits,
             _mean_fold_scores(x, y, *search, voxel_chunk_size, method, fast,
                               paths, total) for x, y in zip(Xp, Yp)])
 
-    if fast_scan != "auto":
-        paths["fast_scan"] = "bf16" if fast_scan else "off"
-        return _select_best_alphas(scores(bool(fast_scan)), alphas,
-                                   single_alpha)
-    mc_fast = scores(True)
-    calib = _calib_voxels(mc_fast.shape[1])
-    mc_cal = _mean_fold_scores(Xp[0], _take_columns(Yp, calib), *search,
-                               None, method, False, paths)
-    if _fast_scan_accept(mc_fast, mc_cal, calib):
-        paths["fast_scan"] = "auto_accepted"
-        return _select_best_alphas(mc_fast, alphas, single_alpha)
-    paths["fast_scan"] = "auto_rejected"
-    del mc_fast
-    return _select_best_alphas(scores(False), alphas, single_alpha)
+    with _search_span(fold_splits, alphas, Yp, voxel_chunk_size):
+        if fast_scan != "auto":
+            paths["fast_scan"] = "bf16" if fast_scan else "off"
+            return _select_best_alphas(scores(bool(fast_scan)), alphas,
+                                       single_alpha)
+        mc_fast = scores(True)
+        calib = _calib_voxels(mc_fast.shape[1])
+        mc_cal = _mean_fold_scores(Xp[0], _take_columns(Yp, calib), *search,
+                                   None, method, False, paths)
+        if _fast_scan_accept(mc_fast, mc_cal, calib):
+            paths["fast_scan"] = "auto_accepted"
+            return _select_best_alphas(mc_fast, alphas, single_alpha)
+        paths["fast_scan"] = "auto_rejected"
+        del mc_fast
+        return _select_best_alphas(scores(False), alphas, single_alpha)
+
+
+def _search_span(fold_splits, alphas, Y_parts, voxel_chunk_size) -> annotate:
+    """The span of one alpha search over `fold_splits` and the column
+    blocks `Y_parts`."""
+    return annotate("litcoder.fit.search", folds=len(fold_splits),
+                    alphas=len(alphas),
+                    voxel_chunks=sum(len(_voxel_chunks(y.shape[1],
+                                                       voxel_chunk_size))
+                                     for y in Y_parts))
 
 
 def _select_best_alphas(mean_corrs: torch.Tensor, alphas: np.ndarray,
@@ -751,27 +783,31 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
                 np.concatenate([o[2] for o in outs]))
     X_train, Y_train, X_test, Y_test = Xp[0], Yp[0], Xtp[0], Ytp[0]
     svd_method = "auto" if method in ("chol", "dual") else method
-    svd = ridge_svd(X_train, None, singcutoff=singcutoff, method=svd_method)
-    nalphas = torch.as_tensor(valphas, dtype=torch.float32,
-                              device=X_train.device)
-    if normalpha:
-        nalphas = nalphas * svd.S[0]
-    wt_parts, corr_parts, p_parts = [], [], []
-    for lo, hi in _voxel_chunks(Y_train.shape[1], voxel_chunk_size):
-        wt = ridge_fit_from_svd(svd, Y_train[:, lo:hi], nalphas[lo:hi])
-        corr, p = _score_held_out(Y_test[:, lo:hi], predict(X_test, wt),
-                                  perm_offsets)
-        corr_parts.append(corr)
-        p_parts.append(p)
-        if return_weights:
-            wt_parts.append(to_numpy(wt))
-        del wt
-    correlations = to_numpy(torch.cat(corr_parts))
-    if perm_offsets is None:
-        pvalues = pearson_pvalues_f64(correlations, Y_test.shape[0])
-    else:
-        pvalues = to_numpy(torch.cat(p_parts)).astype(np.float64)
-    weights = np.concatenate(wt_parts, axis=1) if return_weights else None
+    with annotate("litcoder.fit.refit"):
+        svd = ridge_svd(X_train, None, singcutoff=singcutoff,
+                        method=svd_method)
+        nalphas = torch.as_tensor(valphas, dtype=torch.float32,
+                                  device=X_train.device)
+        if normalpha:
+            nalphas = nalphas * svd.S[0]
+        wt_parts, corr_parts, p_parts = [], [], []
+        for lo, hi in _voxel_chunks(Y_train.shape[1], voxel_chunk_size):
+            wt = ridge_fit_from_svd(svd, Y_train[:, lo:hi], nalphas[lo:hi])
+            corr, p = _score_held_out(Y_test[:, lo:hi], predict(X_test, wt),
+                                      perm_offsets)
+            corr_parts.append(corr)
+            p_parts.append(p)
+            if return_weights:
+                wt_parts.append(to_numpy(wt))
+            del wt
+        weights = (np.concatenate(wt_parts, axis=1) if return_weights
+                   else None)
+        correlations = to_numpy(torch.cat(corr_parts))
+        pvalues = (None if perm_offsets is None
+                   else to_numpy(torch.cat(p_parts)).astype(np.float64))
+    if pvalues is None:
+        with annotate("litcoder.fit.host_stats"):
+            pvalues = pearson_pvalues_f64(correlations, Y_test.shape[0])
     return weights, correlations, pvalues
 
 
@@ -794,11 +830,12 @@ def _downdate_outer(X: torch.Tensor, Y: torch.Tensor, G_full: torch.Tensor,
     place (the JAX package's _downdate_outer_chunked fori_loop carry; its
     separate tail dispatch, _downdate_xty_tail, is the loop's last chunk
     here)."""
-    Xte = X[te]
-    XtY_tr = XtY_full.clone()
-    for lo, hi in _voxel_chunks(Y.shape[1], chunk):
-        XtY_tr[:, lo:hi] -= Xte.T @ Y[:, lo:hi][te]
-    return G_full - Xte.T @ Xte, XtY_tr
+    with annotate("litcoder.fit.gram"):
+        Xte = X[te]
+        XtY_tr = XtY_full.clone()
+        for lo, hi in _voxel_chunks(Y.shape[1], chunk):
+            XtY_tr[:, lo:hi] -= Xte.T @ Y[:, lo:hi][te]
+        return G_full - Xte.T @ Xte, XtY_tr
 
 
 def _inner_fold_factors_from_gram(X: torch.Tensor, va_g: torch.Tensor,
@@ -809,8 +846,9 @@ def _inner_fold_factors_from_gram(X: torch.Tensor, va_g: torch.Tensor,
     training Gram, downdated by the inner val rows and the inner leftover
     `lo_g` (outer-train rows no inner fold touches)."""
     Xva, Xlo = X[va_g], X[lo_g]
-    Z_all, _ = _chol_factors_from_gram(G_tr - Xva.T @ Xva - Xlo.T @ Xlo, Xva,
-                                       alphas, normalpha)
+    with annotate("litcoder.fit.gram"):
+        G_inner = G_tr - Xva.T @ Xva - Xlo.T @ Xlo
+    Z_all, _ = _chol_factors_from_gram(G_inner, Xva, alphas, normalpha)
     return Z_all
 
 
@@ -982,37 +1020,41 @@ def _fused_outer_fold(X, Y, G_full, XtY_full, train_idx, test_idx,
         return _cat_parts([inner_scores(sh, sh["Y"], sh["XtY_tr"], fs)
                            for sh in shards])
 
-    mean_corrs = all_scores(bool(fast_scan))
-    if fast_scan == "auto":
-        # The fold's calibration: its downdated XtY restricted to the
-        # calibration columns (every op is columnwise).
-        calib = _calib_voxels(mean_corrs.shape[1])
-        mc_cal = inner_scores(
-            shards[0], _take_columns([sh["Y"] for sh in shards], calib),
-            _take_columns([sh["XtY_tr"] for sh in shards], calib), False)
-        if _fast_scan_accept(mean_corrs, mc_cal, calib,
-                             label=f" (fused full-CV fold {fold_idx + 1})"):
-            paths["fast_scan"] = "auto_accepted"
-        else:
-            paths["fast_scan"] = "auto_rejected"
-            mean_corrs = all_scores(False)
-    best_valphas = _select_best_alphas(mean_corrs, alphas, single_alpha)
-    del mean_corrs
+    with _search_span(inner_splits, alphas, Yp, voxel_chunk_size):
+        mean_corrs = all_scores(bool(fast_scan))
+        if fast_scan == "auto":
+            # The fold's calibration: its downdated XtY restricted to the
+            # calibration columns (every op is columnwise).
+            calib = _calib_voxels(mean_corrs.shape[1])
+            mc_cal = inner_scores(
+                shards[0], _take_columns([sh["Y"] for sh in shards], calib),
+                _take_columns([sh["XtY_tr"] for sh in shards], calib), False)
+            if _fast_scan_accept(
+                    mean_corrs, mc_cal, calib,
+                    label=f" (fused full-CV fold {fold_idx + 1})"):
+                paths["fast_scan"] = "auto_accepted"
+            else:
+                paths["fast_scan"] = "auto_rejected"
+                mean_corrs = all_scores(False)
+        best_valphas = _select_best_alphas(mean_corrs, alphas, single_alpha)
+        del mean_corrs
     # The refit uses the whole outer-train Gram/XtY: inner-leftover rows are
     # training rows of this fold.
     wts, corrs, perm_ps = [], [], []
     lo = 0
-    for sh in shards:
-        hi = lo + sh["Y"].shape[1]
-        wt, corr, perm_p = _refit_score_from_gram(
-            sh["G_tr"], sh["XtY_tr"], sh["X"][sh["te"]], sh["Y"], sh["te"],
-            torch.as_tensor(best_valphas[lo:hi], device=sh["X"].device),
-            singcutoff, normalpha, return_weights, perm_offsets,
-            voxel_chunk_size)
-        wts.append(wt)
-        corrs.append(to_numpy(corr))
-        perm_ps.append(None if perm_p is None else to_numpy(perm_p))
-        lo = hi
+    with annotate("litcoder.fit.refit"):
+        for sh in shards:
+            hi = lo + sh["Y"].shape[1]
+            wt, corr, perm_p = _refit_score_from_gram(
+                sh["G_tr"], sh["XtY_tr"], sh["X"][sh["te"]], sh["Y"],
+                sh["te"],
+                torch.as_tensor(best_valphas[lo:hi], device=sh["X"].device),
+                singcutoff, normalpha, return_weights, perm_offsets,
+                voxel_chunk_size)
+            wts.append(wt)
+            corrs.append(to_numpy(corr))
+            perm_ps.append(None if perm_p is None else to_numpy(perm_p))
+            lo = hi
     return (best_valphas,
             np.concatenate(wts, axis=1) if return_weights else None,
             np.concatenate(corrs),
@@ -1024,6 +1066,7 @@ def _fused_outer_fold(X, Y, G_full, XtY_full, train_idx, test_idx,
 # the caller back its TF32 setting on return, exceptions included; a fast
 # scan turns TF32 on around its own products only.
 @matmul_tf32(False)
+@annotate("litcoder.fit")
 def fit_nested_cv(
     features,
     targets,
@@ -1168,15 +1211,16 @@ def fit_nested_cv(
                                                Ytp[0].shape[0])
                           if n_perm else None),
         )
-        wt, correlations, pvalues, best_valphas = strip(
-            wt, correlations, pvalues, best_valphas)
-        significant, corrected_pvals = bh_fdrcorrection_np(pvalues,
-                                                           alpha=alpha_fdr)
-        n_significant = int(np.sum(significant))
-        metrics = _create_metrics_dict(
-            list(correlations), list(pvalues), corrected_pvals, significant,
-            best_valphas, n_significant,
-        )
+        with annotate("litcoder.fit.host_stats"):
+            wt, correlations, pvalues, best_valphas = strip(
+                wt, correlations, pvalues, best_valphas)
+            significant, corrected_pvals = bh_fdrcorrection_np(
+                pvalues, alpha=alpha_fdr)
+            n_significant = int(np.sum(significant))
+            metrics = _create_metrics_dict(
+                list(correlations), list(pvalues), corrected_pvals,
+                significant, best_valphas, n_significant,
+            )
         if n_perm:
             metrics["significance_method"] = "permutation"
         metrics["solver_paths"] = paths
@@ -1208,7 +1252,8 @@ def fit_nested_cv(
         leftover = np.setdiff1d(np.arange(n_rows), union, assume_unique=True)
         G_full, XtY_full = [], []
         for x, y in zip(Xp, Yp):
-            g, xty = x.T @ x, x.T @ y
+            with annotate("litcoder.fit.gram"):
+                g, xty = x.T @ x, x.T @ y
             if leftover.size:
                 g, xty = _downdate_outer(
                     x, y, g, xty, torch.as_tensor(leftover, device=x.device))
@@ -1232,8 +1277,6 @@ def fit_nested_cv(
                 inner_per_fold[fold_idx], alphas, single_alpha, normalpha,
                 use_corr, singcutoff, return_weights, voxel_chunk_size,
                 fast_scan, offsets, fold_idx, paths)
-            if pvalues is None:
-                pvalues = pearson_pvalues_f64(correlations, len(test_idx))
         else:
             parts = []
             for x, y in zip(Xp, Yp):
@@ -1248,35 +1291,41 @@ def fit_nested_cv(
                 singcutoff, voxel_chunk_size, method,
                 return_weights=return_weights, perm_offsets=offsets)
             del X_train, X_te, y_train, y_te, parts
-        wt, correlations, pvalues, best_valphas = strip(
-            wt, correlations, pvalues, best_valphas)
-        fold_valphas.append(best_valphas)
-        if return_weights:
-            fold_weights.append(wt)
-        fold_scores.append(correlations)
-        fold_pvalues.append(pvalues)
-        significant, _ = bh_fdrcorrection_np(pvalues, alpha=alpha_fdr)
-        fold_significant_masks.append(significant)
-        logger.info("Fold %d/%d - median r: %.3f, significant: %d/%d",
-                    fold_idx + 1, n_outer, float(np.median(correlations)),
-                    int(np.sum(significant)), len(significant))
+        with annotate("litcoder.fit.host_stats"):
+            if pvalues is None:
+                pvalues = pearson_pvalues_f64(correlations, len(test_idx))
+            wt, correlations, pvalues, best_valphas = strip(
+                wt, correlations, pvalues, best_valphas)
+            fold_valphas.append(best_valphas)
+            if return_weights:
+                fold_weights.append(wt)
+            fold_scores.append(correlations)
+            fold_pvalues.append(pvalues)
+            significant, _ = bh_fdrcorrection_np(pvalues, alpha=alpha_fdr)
+            fold_significant_masks.append(significant)
+            logger.info("Fold %d/%d - median r: %.3f, significant: %d/%d",
+                        fold_idx + 1, n_outer,
+                        float(np.median(correlations)),
+                        int(np.sum(significant)), len(significant))
 
-    all_correlations = np.mean(fold_scores, axis=0)
-    all_pvalues = fisher_combine_pvalues_f64(np.stack(fold_pvalues))
-    significant_mask, corrected_pvalues = bh_fdrcorrection_np(
-        all_pvalues, alpha=alpha_fdr)
-    n_significant = int(np.sum(significant_mask))
-    significance_counts = np.sum(fold_significant_masks, axis=0)
-    majority_significant_mask = significance_counts >= (n_outer // 2 + 1)
-    n_majority_significant = int(np.sum(majority_significant_mask))
-    mean_valphas = np.mean(fold_valphas, axis=0)
-    mean_weights = np.mean(fold_weights, axis=0) if return_weights else None
+    with annotate("litcoder.fit.host_stats"):
+        all_correlations = np.mean(fold_scores, axis=0)
+        all_pvalues = fisher_combine_pvalues_f64(np.stack(fold_pvalues))
+        significant_mask, corrected_pvalues = bh_fdrcorrection_np(
+            all_pvalues, alpha=alpha_fdr)
+        n_significant = int(np.sum(significant_mask))
+        significance_counts = np.sum(fold_significant_masks, axis=0)
+        majority_significant_mask = significance_counts >= (n_outer // 2 + 1)
+        n_majority_significant = int(np.sum(majority_significant_mask))
+        mean_valphas = np.mean(fold_valphas, axis=0)
+        mean_weights = (np.mean(fold_weights, axis=0) if return_weights
+                        else None)
 
-    metrics = _create_full_cv_metrics_dict(
-        all_correlations, all_pvalues, corrected_pvalues, significant_mask,
-        majority_significant_mask, mean_valphas, n_significant,
-        n_majority_significant,
-    )
+        metrics = _create_full_cv_metrics_dict(
+            all_correlations, all_pvalues, corrected_pvalues,
+            significant_mask, majority_significant_mask, mean_valphas,
+            n_significant, n_majority_significant,
+        )
     if n_perm:
         metrics["significance_method"] = "permutation"
     metrics["solver_paths"] = paths

@@ -23,6 +23,12 @@ All products are float32 with TF32 off (the JAX package's
 Precision.HIGHEST: the fit scopes the flag, utils.device.matmul_tf32),
 except the alpha-grid prediction products of a fast scan, which run with
 TF32 on.
+
+Spans (utils.profiling.annotate): `litcoder.fit.gram` where ridge_svd
+forms its Gram or kernel and where the eigh path forms X^T Y;
+`litcoder.fit.lmax` around each lmax_* call (counts `steps`, the m run,
+and `fallback`, 1 where the Ritz value of the whole tridiagonal was not
+usable and the leading blocks were searched).
 """
 
 from typing import NamedTuple, Optional
@@ -31,6 +37,7 @@ import torch
 
 from litcoder_core_torch.ops.stats import signed_square_corr, zscore
 from litcoder_core_torch.utils.device import matmul_tf32
+from litcoder_core_torch.utils.profiling import annotate
 
 
 class RidgeSVD(NamedTuple):
@@ -61,7 +68,9 @@ def ridge_svd(Rstim: torch.Tensor, Pstim: Optional[torch.Tensor] = None,
         method = "eigh" if T >= D else "dual"
 
     if method == "dual":
-        evals, evecs = torch.linalg.eigh(Rstim @ Rstim.T)  # ascending
+        with annotate("litcoder.fit.gram"):
+            K = Rstim @ Rstim.T
+        evals, evecs = torch.linalg.eigh(K)  # ascending
         S = torch.sqrt(torch.clamp(torch.flip(evals, dims=[0]), min=0.0))
         U = torch.flip(evecs, dims=[1])
         good = S > singcutoff
@@ -69,7 +78,9 @@ def ridge_svd(Rstim: torch.Tensor, Pstim: Optional[torch.Tensor] = None,
         Vh = inv_s[:, None] * (U.T @ Rstim)
         keepX = None
     elif method == "eigh":
-        evals, evecs = torch.linalg.eigh(Rstim.T @ Rstim)  # ascending
+        with annotate("litcoder.fit.gram"):
+            G = Rstim.T @ Rstim
+        evals, evecs = torch.linalg.eigh(G)  # ascending
         S = torch.sqrt(torch.clamp(torch.flip(evals, dims=[0]), min=0.0))
         Vh = torch.flip(evecs, dims=[1]).T
         good = S > singcutoff
@@ -92,7 +103,9 @@ def _ur_product(svd: RidgeSVD, Rresp: torch.Tensor) -> torch.Tensor:
     Rresp = Rresp.to(torch.float32)
     if svd.U is not None:
         return svd.U.T @ Rresp
-    VtXtY = svd.Vh @ (svd.X.T @ Rresp)
+    with annotate("litcoder.fit.gram"):
+        XtY = svd.X.T @ Rresp
+    VtXtY = svd.Vh @ XtY
     inv_s = torch.where(svd.good, 1.0 / torch.where(svd.good, svd.S, 1.0),
                         0.0)
     return inv_s[:, None] * VtXtY
@@ -197,8 +210,8 @@ def score_alpha_grid_woodbury(lam_u: torch.Tensor, P: torch.Tensor,
     return torch.stack(out)
 
 
-def _lanczos_lmax(matvec, v0: torch.Tensor, m: int,
-                  bound: torch.Tensor) -> torch.Tensor:
+def _lanczos_lmax(matvec, v0: torch.Tensor, m: int, bound: torch.Tensor,
+                  counts: Optional[dict] = None) -> torch.Tensor:
     """Largest eigenvalue of a symmetric operator by m-step Lanczos with full
     reorthogonalisation. Deterministic (fixed start, fixed step count); m is
     clamped to the dimension, and after Krylov breakdown (beta ~ f32 noise)
@@ -213,9 +226,13 @@ def _lanczos_lmax(matvec, v0: torch.Tensor, m: int,
     the result; otherwise it is the largest Ritz value of the longest
     finite leading block that stays within the bound. Leading blocks'
     largest Ritz values never decrease with the block size (interlacing),
-    so that block is the last one before the junk took over."""
+    so that block is the last one before the junk took over. `counts`
+    (a span's) gets `steps`, the m run, and `fallback`, 1 where that
+    search of the leading blocks ran."""
     n = v0.shape[0]
     m = min(m, n)
+    if counts is not None:
+        counts.update(steps=m, fallback=0)
     dev = v0.device
     v = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
     basis = torch.zeros((m, n), dtype=torch.float32, device=dev)
@@ -251,6 +268,8 @@ def _lanczos_lmax(matvec, v0: torch.Tensor, m: int,
                                & torch.isfinite(off).all()) else None
     if lmax is not None and in_range(lmax):
         return lmax
+    if counts is not None:
+        counts["fallback"] = 1
     finite = torch.isfinite(diag) & torch.isfinite(off)
     k = int(torch.cumprod(finite.to(torch.int32), 0).sum())
     # Row k may hold a finite diagonal whose beta overflowed: the block of
@@ -272,9 +291,11 @@ def _gershgorin_bound(G: torch.Tensor) -> torch.Tensor:
 def lmax_dense(G: torch.Tensor, m: int = 64) -> torch.Tensor:
     """Largest eigenvalue of a dense symmetric PSD matrix by Lanczos, cold
     started from one power step on the all-ones vector."""
-    G = G.to(torch.float32)
-    v0 = G @ torch.ones(G.shape[0], dtype=torch.float32, device=G.device)
-    return _lanczos_lmax(lambda w: G @ w, v0, m, _gershgorin_bound(G))
+    with annotate("litcoder.fit.lmax") as span:
+        G = G.to(torch.float32)
+        v0 = G @ torch.ones(G.shape[0], dtype=torch.float32, device=G.device)
+        return _lanczos_lmax(lambda w: G @ w, v0, m, _gershgorin_bound(G),
+                             span.counts)
 
 
 def _top_basis_vector(lam: torch.Tensor) -> torch.Tensor:
@@ -291,10 +312,11 @@ def lmax_downdate(lam_u: torch.Tensor, P: torch.Tensor,
     """Largest eigenvalue of diag(lam_u) - P^T P (a fold's training Gram in
     the union eigenbasis) by Lanczos: the fused step's per-fold `normalpha`
     scale. diag(lam_u) - P^T P <= diag(lam_u), so max(lam_u) bounds it."""
-    lam = lam_u.to(torch.float32)
-    return _lanczos_lmax(lambda w: lam * w - P.T @ (P @ w),
-                         _top_basis_vector(lam), m,
-                         torch.max(lam) * (1.0 + 1e-4))
+    with annotate("litcoder.fit.lmax") as span:
+        lam = lam_u.to(torch.float32)
+        return _lanczos_lmax(lambda w: lam * w - P.T @ (P @ w),
+                             _top_basis_vector(lam), m,
+                             torch.max(lam) * (1.0 + 1e-4), span.counts)
 
 
 def lmax_update(lam_u: torch.Tensor, P: torch.Tensor,
@@ -303,10 +325,12 @@ def lmax_update(lam_u: torch.Tensor, P: torch.Tensor,
     P holds the rows outside the fold union in the union eigenbasis) by
     Lanczos: the union refit's `normalpha` scale, bounded by
     max(lam_u) + ||P||_F^2."""
-    lam = lam_u.to(torch.float32)
-    return _lanczos_lmax(lambda w: lam * w + P.T @ (P @ w),
-                         _top_basis_vector(lam), m,
-                         (torch.max(lam) + torch.sum(P * P)) * (1.0 + 1e-4))
+    with annotate("litcoder.fit.lmax") as span:
+        lam = lam_u.to(torch.float32)
+        return _lanczos_lmax(lambda w: lam * w + P.T @ (P @ w),
+                             _top_basis_vector(lam), m,
+                             (torch.max(lam) + torch.sum(P * P))
+                             * (1.0 + 1e-4), span.counts)
 
 
 def ridge_fit_from_svd(svd: RidgeSVD, Rresp: torch.Tensor,

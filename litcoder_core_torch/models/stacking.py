@@ -461,7 +461,8 @@ def fit_stacked_ridge(
     Xs_j = [as_f32(X, dev) for X in Xs]
     X_tests_j = ([as_f32(Xt, dev) for Xt in X_tests]
                  if X_tests is not None else None)
-    timer = StageTimer(sync_fn=synchronizer(dev))
+    timer = StageTimer(sync_fn=synchronizer(dev),
+                       span_prefix="litcoder.stacking")
 
     fold_splits = create_folds(T, folding_type, n_inner_folds, chunk_length,
                                seed=seed)

@@ -29,6 +29,10 @@ the card on a side stream from pinned memory when they total at most
 Voxel sharding and tensor-parallel extraction come in through the model's
 `mesh`/`n_devices` and the extractors' `mesh` (parallel/mesh.py,
 parallel/tp.py); the trainer itself is the same either way.
+
+Each stage of train() is the span `litcoder.train.<stage>`
+(utils.profiling.StageTimer); inside log_and_save, `litcoder.log.metrics`
+(the logged scalars and the plots) and `litcoder.log.save` (the saver).
 """
 
 import logging
@@ -53,7 +57,7 @@ from litcoder_core_torch.utils.device import (
     resolve_device,
     synchronizer,
 )
-from litcoder_core_torch.utils.profiling import StageTimer
+from litcoder_core_torch.utils.profiling import StageTimer, annotate
 from litcoder_core_torch.utils.saver import ModelSaver
 
 logger = logging.getLogger(__name__)
@@ -458,8 +462,10 @@ class AbstractTrainer:
                 )
 
         with timer.stage("log_and_save"):
-            self.log_metrics(metrics)
-            self.save_model(weights, best_alphas, metrics, model_kwargs)
+            with annotate("litcoder.log.metrics"):
+                self.log_metrics(metrics)
+            with annotate("litcoder.log.save"):
+                self.save_model(weights, best_alphas, metrics, model_kwargs)
         stage_seconds = timer.report()
         for name, dt in stage_seconds.items():
             self.experiment_logger.log_scalar(f"stage_seconds/{name}", dt)
