@@ -6,7 +6,8 @@ Run from the repository root: python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
   1. device: a CUDA card is required; its name and power limit as nvidia-smi
      reports them.
-  2. build: nvcc builds csrc/lanczos_fir.cu from the checkout; the
+  2. build: nvcc builds csrc/lanczos_fir.cu and csrc/lanczos_step.cu
+     from the checkout (ptxas' registers, shared memory, spills); the
      versions of the optional packages (transformers, tensorboard,
      matplotlib, seaborn) or that they are absent, and whether pandas,
      scipy, soundfile, nibabel and nilearn are installed (read without
@@ -25,7 +26,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
      kernel and torch.matmul(K_all, data) each as back-to-back launches
      between one pair of CUDA events, rotating over operand sets that
      together exceed the 50 MB L2 (so each launch finds its operands cold),
-     and as single calls.
+     and as single calls. Then the lambda-max's Lanczos step kernel
+     (csrc/lanczos_step.cu) against its plain step on the card, step by
+     step from the same inputs, at n 1,424 (a Narratives inner fold's
+     kernel) and 3,072 (a LeBel fold Gram), 64 steps: basis rows exact, a,
+     b, the residual and the scale within 1e-5 of the scale; lmax_dense
+     on the card within 1e-4 of the CPU's; its device time a step in
+     recurrences back to back, each after its operands were evicted from
+     the L2 and with nothing between, a step with its matvec as
+     lmax_dense runs it, the plain step on the card, a whole lmax_dense
+     call, and the step's byte bound.
   4. small parity: the port's AbstractTrainer on small synthetic
      assemblies, on the card and on the CPU, in train/test mode and in
      concatenated full nested-CV mode on both routes (tall chunked folds:
@@ -256,12 +266,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
      that line, not stale, and writes its snapshot. Prints each run's
      wall, launches and median r, and phase 17's wall.
 Phases 5, 6, 12, 13, 14 (a)-(b), 15 (a)-(c), 16's trainers and 17's twins
-set the kernel's launch count to 0 just before they run and read it just
-after; phases 7-10 call the fit or the step directly and print each fit's
-wall, median r, route and peak device memory. The last two lines are a
-JSON record of the kernel (launches on the main path, on the Narratives,
-LM, speech, banded, command-line, mesh and example paths; times at the
-Narratives and the speech shapes) and
+set the FIR kernel's launch count to 0 just before they run and read it
+just after; phases 7-10 call the fit or the step directly and print each
+fit's wall, median r, route and peak device memory. The step kernel's
+launch count is set to 0 as each of phases 3-17 begins and read as it
+ends. The last two lines are a JSON record of the two kernels (the FIR
+kernel's launches on the main path, on the Narratives, LM, speech,
+banded, command-line, mesh and example paths, and its times at the
+Narratives and the speech shapes; the step kernel's launches by phase,
+its largest gap to the plain step and its times at both sizes) and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -329,6 +342,23 @@ SPEECH_TIMING_SETS = 6
 TIMING_ROUNDS = 10
 HOLD_CYCLES = 20_000_000
 MAX_HOLD_DOUBLINGS = 4
+
+# The lambda-max's Lanczos step kernel (csrc/lanczos_step.cu) at the main
+# path's sizes: n 1,424 (a Narratives 21styear inner fold's kernel) and
+# 3,072 (a LeBel fold Gram, 768 x 4 delays), the 64 steps lmax_dense runs.
+# Each step from the same inputs through the kernel and the plain step must
+# agree within STEP_RTOL of the step's scale (the card tests' bar). Timed
+# as whole recurrences back to back: cold, one recurrence a run after
+# STEP_EVICT_BYTES (more than the 50 MB L2) were written, STEP_REPEATS
+# runs; warm, STEP_WARM_ROUNDS recurrences a run. A run enqueues at most
+# a few hundred launches: the host blocks once about a thousand wait
+# behind the hold, so more would never be enqueued within it.
+STEP_SIZES = (1424, 3072)
+STEP_M = 64
+STEP_RTOL = 1e-5
+STEP_EVICT_BYTES = 64e6
+STEP_REPEATS = 11
+STEP_WARM_ROUNDS = 4
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 # float32 outside the tensor cores (the kernel's FMAs).
@@ -652,7 +682,8 @@ def cuda_time_ms(fn, runs=30, warmup=5):
     return float(np.median(times))
 
 
-def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
+def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5,
+                    evict_bytes=0):
     """Device ms per launch: rounds x len(launchers) launches back to back
     between one pair of CUDA events, cycling over `launchers` (each with
     its own operands), divided by their number; the median of `repeats`
@@ -660,7 +691,9 @@ def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
     the spin kernel released the stream are kept, so the device never
     waited on the host: a run that missed is discarded and repeated with
     the hold doubled, and the function raises once the hold has been
-    doubled MAX_HOLD_DOUBLINGS times and the host still outran it."""
+    doubled MAX_HOLD_DOUBLINGS times and the host still outran it. With
+    evict_bytes, a buffer of that size is written before each run, so the
+    run finds its operands out of the L2."""
     import torch
 
     for fn in launchers:
@@ -670,8 +703,12 @@ def back_to_back_ms(launchers, rounds=TIMING_ROUNDS, repeats=5):
     end = torch.cuda.Event(enable_timing=True)
     n = rounds * len(launchers)
     hold_cycles, doublings = HOLD_CYCLES, 0
+    evict = (torch.empty(int(evict_bytes) // 4, device="cuda")
+             if evict_bytes else None)
     times = []
     while len(times) < repeats:
+        if evict is not None:
+            evict.zero_()
         torch.cuda.synchronize()
         hold.record()
         torch.cuda._sleep(hold_cycles)
@@ -893,6 +930,175 @@ def kernel_phase(device):
         device, data_np, dt_np.astype(np.float32), tt_np.astype(np.float32),
         NARR_DELAYS, SPEECH_TIMING_SETS)
     return record
+
+
+def step_operands(n, m, device, gen):
+    """[v, v_prev, basis, diag, off, state] at the start of a recurrence."""
+    import torch
+
+    v = torch.randn(n, device=device, generator=gen)
+    return [v / torch.linalg.norm(v), torch.zeros(n, device=device),
+            torch.zeros((m, n), device=device), torch.zeros(m, device=device),
+            torch.zeros(m, device=device), torch.zeros(2, device=device)]
+
+
+def check_step_kernel(G, m):
+    """Each of m steps of the recurrence on G from the same inputs, through
+    the kernel and through the plain step on the card: basis rows exact,
+    the state's b exactly the step's b, and a, b, b v_next (the residual)
+    and the scale within STEP_RTOL of the scale; then both go on from the
+    plain step's state. Returns the largest gap, as a share of the
+    scale."""
+    import torch
+
+    from litcoder_core_torch.ops import lanczos_step as ls
+
+    n = G.shape[0]
+    v0 = torch.mv(G, torch.ones(n, device=G.device))
+    bufs = step_operands(n, m, G.device, None)
+    bufs[0] = v0 / torch.linalg.norm(v0)
+    worst = 0.0
+    for i in range(m):
+        w = torch.mv(G, bufs[0])
+        mine = [t.clone() for t in bufs]
+        ls.lanczos_step_reference(w, *bufs, i)
+        ls.LanczosSteps(*mine)(w, i)
+        v_p, vn_p, basis_p, diag_p, off_p, state_p = bufs
+        _, vn_k, basis_k, diag_k, off_k, state_k = mine
+        scale = max(float(state_p[1]), 1.0)
+        gap = max(float((diag_k[i] - diag_p[i]).abs()),
+                  float((off_k[i] - off_p[i]).abs()),
+                  float((off_k[i] * vn_k - off_p[i] * vn_p).abs().max()),
+                  float((state_k[1] - state_p[1]).abs())) / scale
+        if not (torch.equal(basis_k[:i + 1], basis_p[:i + 1])
+                and torch.equal(state_k[0], off_k[i])
+                and gap <= STEP_RTOL):
+            raise AssertionError(f"n={n} step {i}: the kernel's step differs "
+                                 f"from the plain step's (gap {gap:.3e} of "
+                                 f"the scale, bar {STEP_RTOL})")
+        worst = max(worst, gap)
+        bufs = [vn_p, v_p, basis_p, diag_p, off_p, state_p]
+    return worst
+
+
+def time_step_kernel(G, m, gen):
+    """Times of the step kernel at n = G's size: `ms`, device ms a step
+    (mean over the m steps of a recurrence) back to back, each recurrence
+    starting with its operands out of the L2; `ms_warm`, recurrences back
+    to back with nothing between; `ms_single_call`, a step of lmax_dense's recurrence with
+    its matvec, host launch path included (one recurrence between two
+    events, over m); `plain_ms`, the same with the plain step's torch ops
+    on the card; `lmax_ms`, a whole lmax_dense call; the bound, the step's
+    bytes at PEAK_BYTES_PER_S: w, v, v_prev and basis rows 0..i-1 read,
+    v_next and basis[i] written."""
+    import torch
+
+    from litcoder_core_torch.models import ridge
+    from litcoder_core_torch.ops import lanczos_step as ls
+
+    n = G.shape[0]
+    steps = ls.LanczosSteps(*step_operands(n, m, G.device, gen))
+    w = torch.randn(n, device=G.device, generator=gen)
+
+    def recurrence():
+        for i in range(m):
+            steps(w, i)
+
+    ms = back_to_back_ms([recurrence], rounds=1, repeats=STEP_REPEATS,
+                         evict_bytes=STEP_EVICT_BYTES) / m
+    ms_warm = back_to_back_ms([recurrence], rounds=STEP_WARM_ROUNDS) / m
+    del steps
+    v0 = torch.mv(G, torch.ones(n, device=G.device))
+
+    def plain_recurrence():
+        bufs = step_operands(n, m, G.device, None)
+        bufs[0] = v0 / torch.linalg.norm(v0)
+        for i in range(m):
+            ls.lanczos_step_reference(torch.mv(G, bufs[0]), *bufs, i)
+            bufs[0], bufs[1] = bufs[1], bufs[0]
+
+    single = cuda_time_ms(lambda: ridge._lanczos_tridiagonal(
+        lambda x: torch.mv(G, x), v0, m)) / m
+    plain = cuda_time_ms(plain_recurrence) / m
+    lmax_ms = cuda_time_ms(lambda: ridge.lmax_dense(G))
+    n_bytes = 4 * n * (np.arange(m) + 5).mean()
+    bound_ms = float(n_bytes / PEAK_BYTES_PER_S * 1e3)
+    return {"ms": ms, "ms_warm": ms_warm, "ms_single_call": single,
+            "plain_ms": plain, "lmax_ms": lmax_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
+def step_kernel_phase(device):
+    """The lambda-max's step kernel against its plain step on the card, per
+    step, at STEP_SIZES; lmax_dense on the card against the CPU; times.
+    Returns the kernel's record (its launches per phase are added later)."""
+    import torch
+
+    from litcoder_core_torch.models import ridge
+    from litcoder_core_torch.utils.device import matmul_tf32
+
+    record = {
+        "name": "lanczos_step",
+        "route": "cuda",
+        "source": "litcoder_core_torch/csrc/lanczos_step.cu",
+        "replaces": "the fori_loop body of _lanczos_lmax, "
+                    "litcoder_core_tpu/models/ridge.py",
+        "launches": None,
+    }
+    gen = torch.Generator(device=device).manual_seed(3)
+    with matmul_tf32(False):
+        for n in STEP_SIZES:
+            A = torch.randn((3 * n, n), device=device, generator=gen)
+            G = A.T @ A / (3.0 * n)
+            del A
+            gap = check_step_kernel(G, STEP_M)
+            card = float(ridge.lmax_dense(G))
+            cpu = float(ridge.lmax_dense(G.cpu()))
+            rel = abs(card - cpu) / abs(cpu)
+            print(f"  step kernel vs plain step, n={n}, {STEP_M} steps: "
+                  f"largest gap {gap:.3e} of the scale; lmax_dense card "
+                  f"{card:.7g}, CPU {cpu:.7g} (relative gap {rel:.3e})",
+                  flush=True)
+            if not rel <= 10 * STEP_RTOL:
+                raise AssertionError(f"lmax_dense on the card is {rel:.3e} "
+                                     f"from the CPU's, over {10 * STEP_RTOL}")
+            timing = time_step_kernel(G, STEP_M, gen)
+            timing.update(max_gap=gap, lmax_card_cpu_gap=rel)
+            print(f"  n={n}: {timing['ms'] * 1e3:.3f} us a step back to back, "
+                  f"L2 cold (warm "
+                  f"{timing['ms_warm'] * 1e3:.3f}; "
+                  f"{timing['bound_ms'] / timing['ms']:.2%} of the bound "
+                  f"{timing['bound_ms'] * 1e3:.4f} us); with its matvec "
+                  f"{timing['ms_single_call'] * 1e3:.2f} us, plain "
+                  f"{timing['plain_ms'] * 1e3:.2f} us; lmax_dense "
+                  f"{timing['lmax_ms']:.3f} ms", flush=True)
+            record[f"n_{n}"] = timing
+            del G
+    return record
+
+
+class StepLaunches:
+    """ops.lanczos_step.launches phase by phase: begin(name) prints the
+    phase's header, files the count of the phase before under its name and
+    sets the counter to 0; end() files the last phase's."""
+
+    def __init__(self):
+        from litcoder_core_torch.ops import lanczos_step
+
+        self._ls = lanczos_step
+        self.by_phase = {}
+        self._name = None
+
+    def begin(self, name):
+        self.end()
+        phase(name)
+        self._ls.launches = 0
+        self._name = name
+
+    def end(self):
+        if self._name is not None:
+            self.by_phase[self._name.split()[0]] = self._ls.launches
+            self._name = None
 
 
 def make_story(rng, name, n_tr, words_per_s, vocab, emb, proj, mix,
@@ -3943,6 +4149,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from litcoder_core_torch.ops import lanczos_fir as lf
+    from litcoder_core_torch.ops import lanczos_step as ls
 
     smi_line = nvidia_smi_line()
     print(f"  {smi_line}; torch {torch.__version__}, CUDA "
@@ -3950,19 +4157,23 @@ def main() -> int:
           flush=True)
 
     phase("2 build")
-    _, report = lf.build()
-    print(f"  built {report['path']} in {report['seconds']:.2f} s", flush=True)
-    for line in report["log"].splitlines():
-        if any(key in line for key in ("Compiling entry", "registers",
-                                       "spill", "smem")):
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for kernel in (lf, ls):
+        _, report = kernel.build()
+        print(f"  built {report['path']} in {report['seconds']:.2f} s",
+              flush=True)
+        for line in report["log"].splitlines():
+            if any(key in line for key in ("Compiling entry", "registers",
+                                           "spill", "smem")):
+                print(f"  ptxas: {line.strip()}", flush=True)
     print(f"  optional packages: {optional_packages()}", flush=True)
 
-    phase("3 kernel vs plain on the card")
+    step_launches = StepLaunches()
+    step_launches.begin("3 kernel vs plain on the card")
     record = kernel_phase(torch.device("cuda"))
+    step_record = step_kernel_phase(torch.device("cuda"))
 
     with tempfile.TemporaryDirectory() as workdir:
-        phase("4 small end-to-end parity, card vs CPU")
+        step_launches.begin("4 small end-to-end parity, card vs CPU")
         small_parity_phase(workdir)
         solver_cases_phase()
         step_cases_phase()
@@ -3972,57 +4183,61 @@ def main() -> int:
         banded_cases_phase()
         small_cli_phase(workdir)
 
-        phase("5 main path at full size")
+        step_launches.begin("5 main path at full size")
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
 
-        phase("6 Narratives path at full width, full nested CV")
+        step_launches.begin("6 Narratives path at full width, full nested CV")
         record["launches_narratives"] = narratives_phase(workdir, smi_line)
 
-        phase("7 fused full-CV route at full size")
+        step_launches.begin("7 fused full-CV route at full size")
         fused_full_cv_phase(smi_line)
 
-        phase("8 north-star whole-brain fit, V=95556")
+        step_launches.begin("8 north-star whole-brain fit, V=95556")
         northstar_fit = northstar_phase(smi_line)
 
-        phase("9 eigh search at full width")
+        step_launches.begin("9 eigh search at full width")
         eigh_search_phase(smi_line)
 
-        phase("10 fused nested-CV step at full size")
+        step_launches.begin("10 fused nested-CV step at full size")
         step_auto = bench_step_phase(smi_line)
         step_full_width_phase(smi_line)
 
-        phase("11 the other downsamplers at full size")
+        step_launches.begin("11 the other downsamplers at full size")
         full_downsample_phase(asm, kv_path)
         average_trainer_phase(asm, kv_path, workdir, smi_line)
 
-        phase("12 language-model trainer at full width")
+        step_launches.begin("12 language-model trainer at full width")
         record["launches_lm"], lm_asm, m_lm, lm_rate = lm_phase(
             asm, workdir, smi_line)
 
-        phase("13 README section 3 with speech features at full width")
+        step_launches.begin("13 README section 3 with speech features at full width")
         record["launches_speech"], audio_path = speech_phase(workdir,
                                                              smi_line)
 
-        phase("14 README section 4's --banded fit at full width")
+        step_launches.begin("14 README section 4's --banded fit at full width")
         record["launches_banded"], m_banded, m_stacked = banded_phase(
             asm, kv_path, workdir, smi_line)
 
-        phase("15 README section 4's command line at full width")
+        step_launches.begin("15 README section 4's command line at full width")
         record["launches_cli"], cli_args, m_cli = cli_phase(
             asm, kv_path, lm_asm, m_banded, m_stacked, workdir, smi_line)
 
-        phase("16 the mesh paths at full width, meshes of cuda:0")
+        step_launches.begin("16 the mesh paths at full width, meshes of cuda:0")
         record["launches_mesh"] = mesh_phase(
             asm, kv_path, lm_asm, workdir, smi_line, northstar_fit,
             (m_banded, m_stacked), step_auto, (m_lm, lm_rate), audio_path,
             (cli_args, m_cli))
 
-        phase("17 the examples on the card")
+        step_launches.begin("17 the examples on the card")
         record["launches_examples"] = examples_phase(workdir, cli_args, m_lm,
                                                      smi_line)
 
+    step_launches.end()
+    step_record["launches"] = step_launches.by_phase
+    print(f"  lanczos_step launches by phase: {step_launches.by_phase}",
+          flush=True)
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, step_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

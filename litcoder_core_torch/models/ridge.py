@@ -17,7 +17,9 @@
   m-step Lanczos with full reorthogonalisation and the f32 breakdown test.
   `lmax_downdate`/`lmax_update` give it for diag(lam) -/+ P^T P, the fused
   step's fold and full training Grams in the union eigenbasis. The JAX
-  fori_loop is a Python loop here; every step stays on the device.
+  fori_loop is a Python loop here: a step is the operator's matvec and
+  ops.lanczos_step, its torch ops on the CPU and one hand-written kernel
+  launch on CUDA. Every step stays on the device.
 
 All products are float32 with TF32 off (the JAX package's
 Precision.HIGHEST: the fit scopes the flag, utils.device.matmul_tf32),
@@ -26,15 +28,17 @@ TF32 on.
 
 Spans (utils.profiling.annotate): `litcoder.fit.gram` where ridge_svd
 forms its Gram or kernel and where the eigh path forms X^T Y;
-`litcoder.fit.lmax` around each lmax_* call (counts `steps`, the m run,
-and `fallback`, 1 where the Ritz value of the whole tridiagonal was not
-usable and the leading blocks were searched).
+`litcoder.fit.lmax` around each lmax_* call (counts `steps`, the m run;
+`fallback`, 1 where the Ritz value of the whole tridiagonal was not
+usable and the leading blocks were searched; `fused`, the steps the
+kernel ran).
 """
 
 from typing import NamedTuple, Optional
 
 import torch
 
+from litcoder_core_torch.ops import lanczos_step
 from litcoder_core_torch.ops.stats import signed_square_corr, zscore
 from litcoder_core_torch.utils.device import matmul_tf32
 from litcoder_core_torch.utils.profiling import annotate
@@ -210,6 +214,25 @@ def score_alpha_grid_woodbury(lam_u: torch.Tensor, P: torch.Tensor,
     return torch.stack(out)
 
 
+def _lanczos_tridiagonal(matvec, v0: torch.Tensor, m: int):
+    """(diag, off, fused) of m Lanczos steps from v0 with full
+    reorthogonalisation: per step the operator's matvec, then
+    ops.lanczos_step, the plain torch ops on the CPU and one kernel launch
+    on CUDA; fused counts the steps the kernel ran."""
+    n = v0.shape[0]
+    dev = v0.device
+    v = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
+    diag = torch.zeros(m, dtype=torch.float32, device=dev)
+    off = torch.zeros(m, dtype=torch.float32, device=dev)
+    steps = lanczos_step.LanczosSteps(
+        v, torch.zeros_like(v),
+        torch.zeros((m, n), dtype=torch.float32, device=dev), diag, off,
+        torch.zeros(2, dtype=torch.float32, device=dev))  # (b_prev, scale)
+    for i in range(m):
+        steps(matvec(steps.v), i)
+    return diag, off, m if steps.fused else 0
+
+
 def _lanczos_lmax(matvec, v0: torch.Tensor, m: int, bound: torch.Tensor,
                   counts: Optional[dict] = None) -> torch.Tensor:
     """Largest eigenvalue of a symmetric operator by m-step Lanczos with full
@@ -227,34 +250,14 @@ def _lanczos_lmax(matvec, v0: torch.Tensor, m: int, bound: torch.Tensor,
     finite leading block that stays within the bound. Leading blocks'
     largest Ritz values never decrease with the block size (interlacing),
     so that block is the last one before the junk took over. `counts`
-    (a span's) gets `steps`, the m run, and `fallback`, 1 where that
-    search of the leading blocks ran."""
+    (a span's) gets `steps`, the m run, `fallback`, 1 where that search of
+    the leading blocks ran, and `fused`, the steps the kernel ran (m on
+    CUDA, 0 on the CPU)."""
     n = v0.shape[0]
     m = min(m, n)
+    diag, off, fused = _lanczos_tridiagonal(matvec, v0, m)
     if counts is not None:
-        counts.update(steps=m, fallback=0)
-    dev = v0.device
-    v = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
-    basis = torch.zeros((m, n), dtype=torch.float32, device=dev)
-    diag = torch.zeros(m, dtype=torch.float32, device=dev)
-    off = torch.zeros(m, dtype=torch.float32, device=dev)
-    v_prev = torch.zeros_like(v)
-    b_prev = torch.zeros((), dtype=torch.float32, device=dev)
-    scale = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(m):
-        w = matvec(v)
-        a = torch.dot(w, v)
-        w = w - a * v - b_prev * v_prev
-        w = w - basis.T @ (basis @ w)
-        b = torch.linalg.norm(w)
-        scale = torch.maximum(scale, torch.abs(a))
-        alive = b > 1e-6 * torch.clamp(scale, min=1.0)
-        v_next = torch.where(alive, w / torch.clamp(b, min=1e-30), 0.0)
-        b = torch.where(alive, b, 0.0)
-        basis[i] = v
-        diag[i] = a
-        off[i] = b
-        v_prev, v, b_prev = v, v_next, b
+        counts.update(steps=m, fallback=0, fused=fused)
 
     def ritz_max(k: int) -> torch.Tensor:
         tri = (torch.diag(diag[:k]) + torch.diag(off[:k - 1], 1)
@@ -294,8 +297,8 @@ def lmax_dense(G: torch.Tensor, m: int = 64) -> torch.Tensor:
     with annotate("litcoder.fit.lmax") as span:
         G = G.to(torch.float32)
         v0 = G @ torch.ones(G.shape[0], dtype=torch.float32, device=G.device)
-        return _lanczos_lmax(lambda w: G @ w, v0, m, _gershgorin_bound(G),
-                             span.counts)
+        return _lanczos_lmax(lambda w: torch.mv(G, w), v0, m,
+                             _gershgorin_bound(G), span.counts)
 
 
 def _top_basis_vector(lam: torch.Tensor) -> torch.Tensor:

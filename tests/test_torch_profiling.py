@@ -176,8 +176,9 @@ def test_fit_routes_give_their_spans(route):
     for s in record:
         if s["name"] == "litcoder.fit.lmax":
             assert record[s["parent"]]["name"] == "litcoder.fit.search"
-            assert set(s["counts"]) == {"steps", "fallback"}
+            assert set(s["counts"]) == {"steps", "fallback", "fused"}
             assert 1 <= s["counts"]["steps"] <= 64
+            assert s["counts"]["fused"] == 0       # the CPU's plain step
         if s["name"] == "litcoder.fit.search":
             assert s["counts"]["folds"] == 5
             assert s["counts"]["alphas"] == 10
@@ -211,7 +212,8 @@ def test_lmax_fallback_is_counted():
     _, record = _under_profiler(lambda: (lmax_dense(Xtr @ Xtr.T),
                                          lmax_dense(G.T @ G)))
     assert [s["counts"] for s in record] == [
-        {"steps": 64, "fallback": 1}, {"steps": 10, "fallback": 0}]
+        {"steps": 64, "fallback": 1, "fused": 0},
+        {"steps": 10, "fallback": 0, "fused": 0}]
 
 
 def test_lm_extractor_spans_and_counts():
