@@ -27,9 +27,12 @@ module with the same call surface) on `device`:
   all-zero-mask rows, which are dropped before pooling).
 
 fp32 forwards run with TF32 off (the parity default); dtype='bfloat16'
-runs the forward on a bf16 copy of the weights, made once, and returns
-fp32 features. `transformers` is imported only where a model is loaded by
-name. The package gains no model: callers inject one or name a checkpoint.
+runs the forward on a bf16 copy of the weights, made once (a model whose
+floating weights are all bf16 already runs as it is), and returns fp32
+features. `transformers` is imported only where a model is loaded by
+name. A checkpoint whose config says model_type 'deepseek_v2' loads into
+the port's own DeepSeek-V2 module (features/deepseek_v2.py), which a
+tensor-parallel mesh refuses; every other family loads through AutoModel.
 
 Spans (utils.profiling.annotate): `litcoder.lm.tokenize` (count windows),
 `litcoder.lm.dispatch` per batch (pad, bucket, enqueue; counts windows,
@@ -50,6 +53,11 @@ import numpy as np
 import torch
 
 from litcoder_core_torch.features.base import BaseFeatureExtractor
+from litcoder_core_torch.features.deepseek_v2 import (
+    checkpoint_config,
+    is_deepseek_v2,
+    load_deepseek_v2,
+)
 from litcoder_core_torch.parallel.tp import (
     check_tp_mesh,
     shard_lm_params,
@@ -68,8 +76,14 @@ _VALID_CONTEXT_TYPES = ["fullcontext", "nocontext", "halfcontext"]
 _CAUSAL_MODEL_TYPES = {
     "gpt2", "gptj", "gpt_neo", "gpt_neox", "opt", "bloom", "codegen",
     "falcon", "llama", "mistral", "mixtral", "gemma", "gemma2", "phi",
-    "phi3", "qwen2", "stablelm", "xglm", "mpt", "pythia",
+    "phi3", "qwen2", "stablelm", "xglm", "mpt", "pythia", "deepseek_v2",
 }
+
+
+def _all_bf16(model: torch.nn.Module) -> bool:
+    """Whether every floating parameter of `model` is bf16 already."""
+    floats = [p for p in model.parameters() if p.is_floating_point()]
+    return bool(floats) and all(p.dtype == torch.bfloat16 for p in floats)
 
 
 def _pad_to_bucket(n: int, granularity: int = 32, minimum: int = 32) -> int:
@@ -212,12 +226,18 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         self._tokenizer = config.get("tokenizer")
         if self._model is None or self._tokenizer is None:
             self._load_model()
+        if self.mesh is not None and is_deepseek_v2(self._model):
+            raise ValueError(
+                "a tensor-parallel mesh cannot shard DeepSeek-V2: MLA "
+                "(kv_b_proj, the shared RoPE key) and MoE (routed and shared "
+                "experts) sharding is unsupported; run it without 'mesh'")
         self._model = self._model.to(self.device).eval()
         self._configure_dims()
         # bf16: a second copy of the weights in bf16, made once; the fp32
-        # model stays as the caller gave it.
+        # model stays as the caller gave it. A model already in bf16 is
+        # not copied.
         self._compute_model = self._model
-        if self.compute_dtype == "bfloat16":
+        if self.compute_dtype == "bfloat16" and not _all_bf16(self._model):
             self._compute_model = copy.deepcopy(self._model).to(
                 torch.bfloat16)
         # A ('data', 'model') mesh: one tensor-parallel copy per 'data'
@@ -233,7 +253,11 @@ class LanguageModelFeatureExtractor(BaseFeatureExtractor):
         from transformers import AutoModel, AutoTokenizer
 
         self._tokenizer = AutoTokenizer.from_pretrained(self.model_name)
-        self._model = AutoModel.from_pretrained(self.model_name)
+        model_type = checkpoint_config(self.model_name).get("model_type")
+        if model_type == "deepseek_v2":
+            self._model = load_deepseek_v2(self.model_name)
+        else:
+            self._model = AutoModel.from_pretrained(self.model_name)
 
     def _configure_dims(self) -> None:
         cfg = self._model.config

@@ -11,7 +11,8 @@
   time.perf_counter_ns, its counts); and, once the process has
   initialised CUDA, records a pair of timing events on the current
   stream at its ends. It never synchronizes: spans() resolves the pair
-  to device-stream seconds when the record is read. The program's spans
+  to device-stream seconds when the record is read, and a count held as
+  a device tensor (set while `recording`) to an int. The program's spans
   are named litcoder.<layer>.<stage>.
 - spans() / clear_spans(): the record.
 - StageTimer: per-stage wall-clock accounting with a report; each stage
@@ -56,6 +57,12 @@ class annotate(contextlib.ContextDecorator):
     @property
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) / 1e9
+
+    @property
+    def recording(self) -> bool:
+        """Whether the open span goes into the record (a profiler runs):
+        counts that cost device work are worth computing only then."""
+        return self._entry is not None
 
     def __enter__(self) -> "annotate":
         if _autograd_profiler._is_profiler_enabled:
@@ -110,13 +117,20 @@ def spans() -> List[Dict[str, Any]]:
     """The record, oldest span first (not cleared). Each entry: `name`;
     `parent`, the index in the record of the span it opened in, None for
     a root span (whose index identifies its call); `start_ns`, `end_ns`
-    (time.perf_counter_ns; `end_ns` None while open); `counts`;
-    `device_s`, the current CUDA stream's seconds from its start to its
-    end, None where no CUDA events were recorded. Reading waits for the
-    device to reach each span's end event."""
+    (time.perf_counter_ns; `end_ns` None while open); `counts` (a count
+    set as a tensor is read as an int); `device_s`, the current CUDA
+    stream's seconds from its start to its end, None where no CUDA events
+    were recorded. Reading waits for the device to reach each span's end
+    event."""
+    import torch
+
     with _lock:
         entries = list(_record)
     for entry in entries:
+        counts = entry["counts"]
+        for key, value in counts.items():
+            if isinstance(value, torch.Tensor):
+                counts[key] = int(value)
         events = entry.get("_events")
         if events is not None and events[1] is not None:
             events[1].synchronize()

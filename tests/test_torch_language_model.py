@@ -256,3 +256,39 @@ def test_pipelined_fetch_keeps_depth_and_order():
         assert len(seen) == max(0, k - 1)
     pipe.flush()
     assert seen == [(k, float(k)) for k in range(5)]
+
+
+def test_bf16_model_runs_as_it_is_and_fp32_gets_a_copy(gpt2_pair):
+    """dtype='bfloat16' with a model whose floating weights are all bf16
+    uses that model, no copy (its parameters share storage); an fp32 model
+    still gets a bf16 copy and is left in fp32."""
+    import copy
+
+    tm = gpt2_pair[1]
+    bf = copy.deepcopy(tm).to(torch.bfloat16)
+    ex = _port_extractor(bf, dtype="bfloat16")
+    assert ex._compute_model is bf
+    for p, q in zip(ex._compute_model.parameters(), bf.parameters()):
+        assert p.data_ptr() == q.data_ptr()
+    ex32 = _port_extractor(tm, dtype="bfloat16")
+    assert ex32._compute_model is not tm
+    got = dict(ex32._compute_model.named_parameters())
+    for name, p in tm.named_parameters():
+        assert p.dtype == torch.float32
+        assert got[name].dtype == torch.bfloat16
+        assert got[name].data_ptr() != p.data_ptr()
+
+
+def test_a_tp_mesh_refuses_deepseek_v2():
+    from litcoder_core_torch.features import deepseek_v2 as dsv2
+    from litcoder_core_torch.parallel.tp import make_lm_mesh
+
+    cfg = {"vocab_size": 64, "hidden_size": 16, "intermediate_size": 24,
+           "moe_intermediate_size": 8, "num_hidden_layers": 2,
+           "num_attention_heads": 2, "n_routed_experts": 4,
+           "n_shared_experts": 1, "num_experts_per_tok": 2,
+           "kv_lora_rank": 8, "qk_nope_head_dim": 8, "qk_rope_head_dim": 4,
+           "v_head_dim": 8, "first_k_dense_replace": 1}
+    model = dsv2.DeepseekV2Model(cfg)
+    with pytest.raises(ValueError, match="MLA .*MoE.* unsupported"):
+        _port_extractor(model, mesh=make_lm_mesh(1, 2, device="cpu"))
