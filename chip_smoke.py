@@ -6,8 +6,8 @@ Run from the repository root: python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
   1. device: a CUDA card is required; its name and power limit as nvidia-smi
      reports them.
-  2. build: nvcc builds csrc/lanczos_fir.cu and csrc/lanczos_step.cu
-     from the checkout (ptxas' registers, shared memory, spills); the
+  2. build: nvcc builds csrc/lanczos_fir.cu, csrc/lanczos_step.cu and
+     csrc/moe_combine.cu from the checkout (ptxas' registers, shared memory, spills); the
      versions of the optional packages (transformers, tensorboard,
      matplotlib, seaborn) or that they are absent, and whether pandas,
      scipy, soundfile, nibabel and nilearn are installed (read without
@@ -35,7 +35,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
      recurrences back to back, each after its operands were evicted from
      the L2 and with nothing between, a step with its matvec as
      lmax_dense runs it, the plain step on the card, a whole lmax_dense
-     call, and the step's byte bound.
+     call, and the step's byte bound. Then the mixture of experts' combine
+     kernel (csrc/moe_combine.cu) against its plain version at
+     DeepSeek-V2-Lite's training-cell shape (18,432 tokens, top-6, hidden
+     2,048) and at a ragged 1,237 tokens: within one bf16 ulp of each
+     entry, then bit for bit; its time there back to back with the L2
+     cold, as single calls, beside its byte bound, the plain version and
+     the float32 scatter-add it replaced.
   4. small parity: the port's AbstractTrainer on small synthetic
      assemblies, on the card and on the CPU, in train/test mode and in
      concatenated full nested-CV mode on both routes (tall chunked folds:
@@ -155,7 +161,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
      (e) a second train() on the same cache directory runs no forward and
      gives the same metrics. Prints windows, real and padded tokens,
      forwards, windows/s and tokens/s, the extractor's summed stage
-     seconds, both runs' stage split, peak memory and median r.
+     seconds, both runs' stage split, peak memory and median r. Then (f)
+     the port's DeepSeek-V2 module at DeepSeek-V2-Lite's published widths,
+     cut to 4 layers (the first dense, 3 MoE), bf16 weights drawn on the
+     card, through the extractor in dtype 'bfloat16' at batches of 64 over
+     story 0's fullcontext windows (forwards of 64 x 288 tokens, as
+     lebel.train_dsv2lite runs them): the combine kernel's launches, set to
+     0 just before and read just after, equal the MoE layers' calls and
+     the forwards times 3; the same windows again under the profiler give
+     one litcoder.lm.moe.combine span a launch, each with fused 1, and
+     their device time a call.
  13. README section 3 with speech features at full width: a Narratives
      data dir written from a seed (one 21styear story of 240 TRs of 1.5 s,
      words at about 2.5 words/s, 360 s of 16 kHz audio, an empty
@@ -270,11 +285,13 @@ set the FIR kernel's launch count to 0 just before they run and read it
 just after; phases 7-10 call the fit or the step directly and print each
 fit's wall, median r, route and peak device memory. The step kernel's
 launch count is set to 0 as each of phases 3-17 begins and read as it
-ends. The last two lines are a JSON record of the two kernels (the FIR
+ends. The last two lines are a JSON record of the three kernels (the FIR
 kernel's launches on the main path, on the Narratives, LM, speech,
 banded, command-line, mesh and example paths, and its times at the
 Narratives and the speech shapes; the step kernel's launches by phase,
-its largest gap to the plain step and its times at both sizes) and
+its largest gap to the plain step and its times at both sizes; the
+combine kernel's launches in phase 12 (f) and in phase 3, and its times)
+and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -359,6 +376,18 @@ STEP_RTOL = 1e-5
 STEP_EVICT_BYTES = 64e6
 STEP_REPEATS = 11
 STEP_WARM_ROUNDS = 4
+
+# The mixture of experts' combine kernel (csrc/moe_combine.cu) at
+# DeepSeek-V2-Lite's training-cell shape (64 windows x 288 tokens, top-6,
+# hidden 2,048) and at a ragged token count; kernel and plain version must
+# agree bit for bit (the same products added in the same order), and first
+# within one bf16 ulp of each entry. Timed back to back (the experts' rows
+# alone are 453 MB, past the L2, and COMBINE_EVICT_BYTES are written before
+# each run), COMBINE_ROUNDS launches a run, beside the plain version and the
+# float32 scatter-add the port used before (library_ms, never called by it).
+COMBINE_SHAPES = ((18432, 6, 2048), (1237, 6, 2048))
+COMBINE_EVICT_BYTES = 64e6
+COMBINE_ROUNDS = 20
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 # float32 outside the tensor cores (the kernel's FMAs).
@@ -1075,6 +1104,115 @@ def step_kernel_phase(device):
             record[f"n_{n}"] = timing
             del G
     return record
+
+
+def combine_operands(n, k, h, experts, gen):
+    """ys (n k, h) bf16 in expert-sorted order, the sort's order and
+    softmax weights (n, k) float32, as DeepseekV2MoE.routed holds them."""
+    import torch
+
+    dev = gen.device
+    ids = torch.rand((n, experts), device=dev, generator=gen).argsort(
+        dim=1)[:, :k]
+    order = torch.argsort(ids.reshape(-1), stable=True)
+    ys = torch.randn((n * k, h), device=dev, generator=gen).to(
+        torch.bfloat16)
+    weights = torch.randn((n, k), device=dev, generator=gen).softmax(-1)
+    return ys, order, weights
+
+
+def scatter_add_combine(ys, order, weights):
+    """The combine as the port did it before the kernel: a float32 zeros,
+    ys upcast, times the gathered weights, index_add_, a cast to bf16."""
+    import torch
+
+    k = weights.shape[1]
+    out = torch.zeros((weights.shape[0], ys.shape[1]), dtype=torch.float32,
+                      device=ys.device)
+    w = weights.reshape(-1)[order]
+    out.index_add_(0, order // k, ys.float() * w[:, None])
+    return out.to(ys.dtype)
+
+
+def combine_kernel_phase(device):
+    """The MoE combine kernel against its plain version on the card at
+    COMBINE_SHAPES; its times at the first. Returns the kernel's record."""
+    import torch
+
+    from litcoder_core_torch.ops import moe_combine as mc
+
+    record = {
+        "name": "moe_combine",
+        "route": "cuda",
+        "source": "litcoder_core_torch/csrc/moe_combine.cu",
+        "replaces": "none (the JAX package has no mixture of experts): the "
+                    "float32 index_add combine of DeepseekV2MoE.routed",
+    }
+    gen = torch.Generator(device=device).manual_seed(4)
+    launches0 = mc.launches
+    for n, k, h in COMBINE_SHAPES:
+        ys, order, weights = combine_operands(n, k, h, 64, gen)
+        pos = mc.inverse_order(order)
+        got = mc.moe_combine(ys, pos, weights)
+        torch.cuda.synchronize()
+        want = mc.moe_combine_reference(ys, pos, weights)
+        gap = (got.float() - want.float()).abs()
+        spacing = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp(min=2.0 ** -126))) - 7)
+        ulps = float((gap / spacing).max())
+        differ = int((got != want).sum())
+        former = int((scatter_add_combine(ys, order, weights) != want).sum())
+        print(f"  moe_combine N={n} k={k} H={h}: {differ} of {got.numel()} "
+              f"entries differ from the plain version, at most {ulps:g} "
+              f"bf16 ulp (the former scatter-add differs in {former})",
+              flush=True)
+        if ulps > 1:
+            raise AssertionError(f"moe_combine is {ulps:g} bf16 ulp from "
+                                 f"its plain version at N={n}")
+        if differ:
+            raise AssertionError(f"moe_combine differs from its plain "
+                                 f"version in {differ} entries at N={n}")
+        if (n, k, h) == COMBINE_SHAPES[0]:
+            record.update(shape=dict(n=n, k=k, h=h),
+                          **time_combine(ys, order, pos, weights))
+        del ys, order, weights, pos, got, want, gap, spacing
+    record["launches"] = mc.launches - launches0
+    t = record
+    print(f"  moe_combine at N={t['shape']['n']}: {t['ms']:.4f} ms back to "
+          f"back, L2 cold ({t['bound_ms'] / t['ms']:.1%} of the bound "
+          f"{t['bound_ms']:.4f} ms, {t['bytes']:,} B at 3.35 TB/s); single "
+          f"call {t['ms_single_call']:.4f} ms; plain {t['plain_ms']:.4f} ms;"
+          f" former scatter-add (library_ms) {t['library_ms']:.4f} ms; "
+          f"{t['launches']} launches",
+          flush=True)
+    return record
+
+
+def time_combine(ys, order, pos, weights):
+    """`ms`: the kernel back to back with its operands out of the L2;
+    `ms_single_call`: single calls between two events (the host's launch
+    path included); `plain_ms`, `library_ms`: the plain version and the
+    former scatter-add back to back; the bound: each token's k rows, k
+    weights and positions read once, its bf16 row written once."""
+    from litcoder_core_torch.ops import moe_combine as mc
+
+    n, k = weights.shape
+    h = ys.shape[1]
+    ms = back_to_back_ms([lambda: mc.moe_combine(ys, pos, weights)],
+                         rounds=COMBINE_ROUNDS,
+                         evict_bytes=COMBINE_EVICT_BYTES)
+    single = cuda_time_ms(lambda: mc.moe_combine(ys, pos, weights))
+    plain = back_to_back_ms(
+        [lambda: mc.moe_combine_reference(ys, pos, weights)], rounds=2,
+        evict_bytes=COMBINE_EVICT_BYTES)
+    library = back_to_back_ms(
+        [lambda: scatter_add_combine(ys, order, weights)], rounds=2,
+        evict_bytes=COMBINE_EVICT_BYTES)
+    n_bytes = n * k * h * 2 + n * k * 8 + n * h * 2
+    return {"ms": ms, "ms_single_call": single, "plain_ms": plain,
+            "library_ms": library, "bytes": n_bytes,
+            "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 class StepLaunches:
@@ -2120,6 +2258,25 @@ LM_CARD_CPU_RTOL, LM_PREFIX_RTOL, LM_SMALL_RTOL = 1e-3, 1e-4, 1e-5
 # each inner fold trains on about 2,684 rows < 3,072 features, so the fit
 # takes the dual (kernel) search.
 LM_PATHS = _paths("dual")
+# Phase 12 (f): DeepSeek-V2-Lite's published config.json
+# (huggingface.co/deepseek-ai/DeepSeek-V2-Lite), its depth cut to
+# DSV2_LAYERS (the first dense, the rest MoE) to spare the card's memory
+# and the phase's time; every width as published. Weights N(0, 0.02^2) in
+# bf16 drawn on the card, RMSNorm gains 1.
+DSV2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+    moe_intermediate_size=1408, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, kv_lora_rank=512,
+    q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, n_routed_experts=64, n_shared_experts=2,
+    num_experts_per_tok=6, first_k_dense_replace=1, moe_layer_freq=1,
+    routed_scaling_factor=1.0, topk_method="greedy", norm_topk_prob=False,
+    scoring_func="softmax", hidden_act="silu", rms_norm_eps=1e-6,
+    rope_theta=10000.0, max_position_embeddings=163840,
+    rope_scaling=dict(type="yarn", factor=40, beta_fast=32, beta_slow=1,
+                      mscale=0.707, mscale_all_dim=0.707,
+                      original_max_position_embeddings=4096))
+DSV2_LAYERS = 4
 
 
 def stand_in_decoder(vocab_size, n_positions, n_embd, n_layer, n_head):
@@ -2458,6 +2615,95 @@ def lm_phase(asm, workdir, smi_line):
     if not same or dr > 1e-6:
         raise AssertionError("(e) the cached run's metrics differ")
     return launches, lm_asm, m1, rate
+
+
+def dsv2_model(n_layers, device):
+    """The port's DeepseekV2Model of DSV2_LITE's widths and `n_layers`
+    layers on `device` in bf16, weights drawn there under one seeded
+    generator."""
+    import torch
+
+    from litcoder_core_torch.features.deepseek_v2 import DeepseekV2Model
+
+    with torch.device("meta"):
+        model = DeepseekV2Model(dict(DSV2_LITE, num_hidden_layers=n_layers))
+    model = model.to_empty(device=device).to(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(19)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model.eval().requires_grad_(False)
+
+
+def dsv2_combine_check(words):
+    """Phase 12 (f): the combine kernel on the main path. Returns
+    {launches, moe_calls, forwards, shapes, spans, ms_a_call}."""
+    import torch
+
+    from litcoder_core_torch.features.deepseek_v2 import DeepseekV2MoE
+    from litcoder_core_torch.ops import moe_combine as mc
+    from litcoder_core_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    model = dsv2_model(DSV2_LAYERS, torch.device("cuda"))
+    moe = [m for m in model.modules() if isinstance(m, DeepseekV2MoE)]
+    calls, shapes = [0], set()
+    for m in moe:
+        m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+    model.register_forward_pre_hook(
+        lambda _, args, kwargs: shapes.add(tuple(kwargs["input_ids"].shape)),
+        with_kwargs=True)
+    windows = fullcontext_windows(words)
+    config = dict(model_name="deepseek-v2-lite-random-init",
+                  last_token=True, dtype="bfloat16")
+    print(f"  (f) DeepSeek-V2-Lite widths, {DSV2_LAYERS} layers ({len(moe)} "
+          f"MoE) in bf16, built in {time.perf_counter() - t0:.1f} s; "
+          f"{len(windows)} windows", flush=True)
+
+    ex = lm_extractor(model, "cuda", **config)
+    torch.cuda.synchronize()
+    mc.launches, calls[0] = 0, 0
+    t0 = time.perf_counter()
+    ex.extract_all_layers(windows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, moe_calls = mc.launches, calls[0]
+    forwards = ex.counts["chain_forwards"] + ex.counts["single_forwards"]
+    print(f"  (f) extraction {wall:.2f} s: {forwards} forwards of "
+          f"{sorted(shapes)} tokens, {moe_calls} MoE layer calls, "
+          f"moe_combine launches {launches}", flush=True)
+    if not forwards or launches != moe_calls \
+            or launches != forwards * len(moe):
+        raise AssertionError(
+            f"(f) {launches} combine launches for {moe_calls} MoE layer "
+            f"calls in {forwards} forwards of {len(moe)} MoE layers")
+
+    ex = lm_extractor(model, "cuda", **config)
+    profiling.clear_spans()
+    before = mc.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        ex.extract_all_layers(windows)
+    spans = [s for s in profiling.spans()
+             if s["name"] == "litcoder.lm.moe.combine"]
+    profiling.clear_spans()
+    traced = mc.launches - before
+    fused = sorted({s["counts"]["fused"] for s in spans})
+    ms = sum(s["device_s"] for s in spans) / max(len(spans), 1) * 1e3
+    print(f"  (f) under the profiler: {len(spans)} litcoder.lm.moe.combine "
+          f"spans for {traced} launches, fused {fused}, {ms:.4f} ms of "
+          f"device time a span", flush=True)
+    if len(spans) != traced or fused != [1]:
+        raise AssertionError(f"(f) {len(spans)} combine spans for {traced} "
+                             f"launches, fused {fused}")
+    del model, ex
+    torch.cuda.empty_cache()
+    return {"launches": launches, "moe_calls": moe_calls,
+            "forwards": forwards, "shapes": sorted(shapes),
+            "spans": len(spans), "ms_a_call": ms}
 
 
 # Phases 4 and 13: README section 3 from AssemblyGenerator to the fit, with
@@ -4150,6 +4396,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from litcoder_core_torch.ops import lanczos_fir as lf
     from litcoder_core_torch.ops import lanczos_step as ls
+    from litcoder_core_torch.ops import moe_combine as mc
 
     smi_line = nvidia_smi_line()
     print(f"  {smi_line}; torch {torch.__version__}, CUDA "
@@ -4157,7 +4404,7 @@ def main() -> int:
           flush=True)
 
     phase("2 build")
-    for kernel in (lf, ls):
+    for kernel in (lf, ls, mc):
         _, report = kernel.build()
         print(f"  built {report['path']} in {report['seconds']:.2f} s",
               flush=True)
@@ -4171,6 +4418,7 @@ def main() -> int:
     step_launches.begin("3 kernel vs plain on the card")
     record = kernel_phase(torch.device("cuda"))
     step_record = step_kernel_phase(torch.device("cuda"))
+    combine_record = combine_kernel_phase(torch.device("cuda"))
 
     with tempfile.TemporaryDirectory() as workdir:
         step_launches.begin("4 small end-to-end parity, card vs CPU")
@@ -4209,6 +4457,10 @@ def main() -> int:
         step_launches.begin("12 language-model trainer at full width")
         record["launches_lm"], lm_asm, m_lm, lm_rate = lm_phase(
             asm, workdir, smi_line)
+        main_path = dsv2_combine_check(asm.story_data[asm.stories[0]].words)
+        combine_record["launches_phase3"] = combine_record.pop("launches")
+        combine_record["launches"] = main_path.pop("launches")
+        combine_record["main_path"] = main_path
 
         step_launches.begin("13 README section 3 with speech features at full width")
         record["launches_speech"], audio_path = speech_phase(workdir,
@@ -4237,7 +4489,8 @@ def main() -> int:
     print(f"  lanczos_step launches by phase: {step_launches.by_phase}",
           flush=True)
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": [record, step_record]}), flush=True)
+    print(json.dumps({"kernels": [record, step_record, combine_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

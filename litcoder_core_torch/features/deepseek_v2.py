@@ -35,18 +35,23 @@ and times routed_scaling_factor. Each layer holds its routed experts as
 two stacked tensors (DeepseekV2Experts: gate and up together, then down),
 stacked once, as a state dict loads. Tokens are sorted by expert on the
 device, each projection is one GEMM over the sorted rows, and the
-weighted combine is a float32 scatter-add; the shared experts add their
-output. Only the GEMM differs by device (expert_gemm): on a CUDA device
-one torch._grouped_mm in bfloat16, nothing in the forward waiting for
-the device, and anything else there refused; on the CPU a loop over the
-experts' row ranges.
+weighted combine (ops/moe_combine.py) sums each token's k rows in float32,
+in slot order, into its row in the input's dtype; the shared experts add
+their output. The GEMM and the combine differ by device: on a CUDA device
+one torch._grouped_mm in bfloat16 (expert_gemm) and the hand-written
+combine kernel, nothing in the forward waiting for the device, and
+anything else there refused; on the CPU a loop over the experts' row
+ranges and the combine's plain version.
 
 Spans (utils.profiling.annotate): `litcoder.lm.mla` per attention call;
 `litcoder.lm.moe` per MoE layer with counts tokens (rows routed, padding
 included), real_tokens, max_expert_tokens (the most rows any expert
 got) and experts_hit (the experts that got any; the last three device
-tensors, read when the record is read); its child
-`litcoder.lm.moe.experts` around the routed experts' GEMMs.
+tensors, read when the record is read); its children
+`litcoder.lm.moe.experts` around the routed experts' GEMMs and
+`litcoder.lm.moe.combine` around the inverse permutation and the combine,
+with counts rows (N k), tokens (N) and fused (1 where the kernel ran, 0 on
+the CPU).
 """
 
 import json
@@ -58,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from litcoder_core_torch.ops.moe_combine import inverse_order, moe_combine
 from litcoder_core_torch.utils.profiling import annotate
 
 MODEL_TYPE = "deepseek_v2"
@@ -387,7 +393,7 @@ class DeepseekV2MoE(nn.Module):
                                  else B * L),
                     max_expert_tokens=per_expert.max(),
                     experts_hit=(per_expert > 0).sum())
-            out = routed.to(x.dtype).view(B, L, H)
+            out = routed.view(B, L, H)
             if self.shared_experts is not None:
                 out = out + self.shared_experts(x)
             return out
@@ -395,10 +401,10 @@ class DeepseekV2MoE(nn.Module):
     def routed(self, flat: torch.Tensor, weights: torch.Tensor,
                ids: torch.Tensor, gemm) -> Tuple[torch.Tensor,
                                                  torch.Tensor]:
-        """(the routed experts' weighted sum (N, hidden) float32, each
-        expert's end in the sorted rows (E,) int32): rows sorted by expert
-        on the device, one `gemm` (expert_gemm) per projection over them,
-        a float32 scatter-add of the weighted rows."""
+        """(the routed experts' weighted sum (N, hidden) in flat's dtype,
+        each expert's end in the sorted rows (E,) int32): rows sorted by
+        expert on the device, one `gemm` (expert_gemm) per projection over
+        them, then moe_combine of each token's k rows, summed in float32."""
         gate_up, down = self.experts.gate_up_proj, self.experts.down_proj
         width = down.shape[2]
         flat_ids = ids.reshape(-1)
@@ -413,10 +419,10 @@ class DeepseekV2MoE(nn.Module):
             h = gemm(xs, gate_up, ends)
             act = F.silu(h[:, :width]) * h[:, width:]
             ys = gemm(act, down, ends)
-        w = weights.reshape(-1)[order]
-        out = torch.zeros(flat.shape, dtype=torch.float32,
-                          device=flat.device)
-        out.index_add_(0, rows, ys.float() * w[:, None])
+        with annotate("litcoder.lm.moe.combine", rows=order.numel(),
+                      tokens=flat.shape[0],
+                      fused=int(ys.device.type == "cuda")):
+            out = moe_combine(ys, inverse_order(order), weights)
         return out, ends
 
 

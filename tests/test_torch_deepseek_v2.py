@@ -10,8 +10,9 @@ publishes it. Weights are seeded random, wider than a checkpoint's
 
 Tolerances, each against the largest magnitude of the compared tensor:
 - FP32 2e-5: float32 on both sides; the port sums in other orders (SDPA,
-  index_add) and takes RoPE angles in float32 where the reference takes
-  float64, a few float32 ulps through 3 layers (1.4e-6 read);
+  the experts' combine) and takes RoPE angles in float32 where the
+  reference takes float64, a few float32 ulps through 3 layers (1.4e-6
+  read);
 - BF16 8e-2: the port keeps activations in bf16 (8 significant bits,
   relative rounding 2^-9 per operation, tens of roundings a layer)
   through 3 layers against the reference on the same weights upcast to
@@ -19,9 +20,9 @@ Tolerances, each against the largest magnitude of the compared tensor:
   about 16 times that);
 - against transformers, FP32 as well (the same arithmetic in float32).
 
-The grouped GEMM runs only on a card: the tests that take the `card`
-fixture hold it against the loop of matmuls and the reference there, and
-skip here. This file
+The grouped GEMM and the combine kernel run only on a card: the tests
+that take the `card` fixture hold them against the loop of matmuls and
+the reference there, and skip here. This file
 imports no JAX, so the card's machine runs it:
 
     python -m pytest --noconftest -p no:cacheprovider -q \\
@@ -341,6 +342,32 @@ def test_spans_and_counts_only_under_a_profiler(tiny, sequences):
             assert s["parent"] in moe
 
 
+def test_combine_span_and_counts_only_under_a_profiler(tiny, sequences):
+    """litcoder.lm.moe.combine: one inside each litcoder.lm.moe, with rows
+    (N k), tokens (N) and fused 0 on the CPU (the plain version ran); no
+    span without a profiler."""
+    cfg, w = tiny
+    model = _port(cfg, w, torch.bfloat16)
+    ids, mask = _batch(sequences)
+    profiling.clear_spans()
+    with torch.inference_mode():
+        model(input_ids=ids, attention_mask=mask)
+    assert profiling.spans() == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            model(input_ids=ids, attention_mask=mask)
+    spans = profiling.spans()
+    profiling.clear_spans()
+    moe = [i for i, s in enumerate(spans) if s["name"] == "litcoder.lm.moe"]
+    combine = [s for s in spans if s["name"] == "litcoder.lm.moe.combine"]
+    assert len(moe) == len(combine) == 2
+    assert sorted(s["parent"] for s in combine) == moe
+    for s in combine:
+        assert s["counts"] == {"rows": ids.numel() * 2,
+                               "tokens": ids.numel(), "fused": 0}
+
+
 def test_config_from_transformers_and_refusals():
     from transformers import DeepseekV2Config
 
@@ -405,3 +432,36 @@ def test_bf16_forward_on_the_card_never_waits(card, tiny, sequences):
         want = ref.hidden_states(same, cfg, seq)
         for got, exp in zip(out.hidden_states, want):
             assert _gap(got[b, :len(seq)].cpu(), exp) < BF16
+
+
+def test_combine_kernel_runs_once_per_moe_layer_on_the_card(card, tiny,
+                                                            sequences):
+    """A bf16 forward on the card launches the combine kernel once per MoE
+    layer (2 here), waits for the device nowhere (sync debug mode
+    'error'), and its combine spans read fused 1."""
+    from litcoder_core_torch.ops import moe_combine as mc
+
+    cfg, w = tiny
+    model = _port(cfg, {k: v.to(card) for k, v in w.items()},
+                  torch.bfloat16)
+    ids, mask = _batch(sequences)
+    ids, mask = ids.to(card), mask.to(card)
+    with torch.inference_mode():
+        model(input_ids=ids, attention_mask=mask)       # builds
+        torch.cuda.synchronize()
+        before = mc.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model(input_ids=ids, attention_mask=mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert mc.launches == before + 2
+        profiling.clear_spans()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            model(input_ids=ids, attention_mask=mask)
+    spans = profiling.spans()
+    profiling.clear_spans()
+    fused = [s["counts"]["fused"] for s in spans
+             if s["name"] == "litcoder.lm.moe.combine"]
+    assert fused == [1, 1]
