@@ -3,295 +3,108 @@
 
 Run from the repository root: python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero and prints no result:
-  1. device: a CUDA card is required; its name and power limit as nvidia-smi
-     reports them.
-  2. build: nvcc builds csrc/lanczos_fir.cu, csrc/lanczos_step.cu and
-     csrc/moe_combine.cu from the checkout (ptxas' registers, shared memory, spills); the
-     versions of the optional packages (transformers, tensorboard,
-     matplotlib, seaborn) or that they are absent, and whether pandas,
-     scipy, soundfile, nibabel and nilearn are installed (read without
-     importing them).
-  3. kernel: the fused Lanczos+FIR CUDA kernel against its plain torch
-     version on the card (atol 1e-4, the bar the TPU kernel met against the
-     two-stage path), at the trainer's main shape, at the main shape with
-     word times permuted, with a 60 s silent gap and with descending TR
-     times, at the shapes of tests/test_pallas_kernels.py, at one shape
-     of two scan passes, at the Narratives 21styear shape (8,434 words,
-     2,249 TRs, D=768, delays 1-8) and at the speech shape (3,441 frames at
-     16.0 + 0.1 i s onto 240 TRs of 1.5 s, D=768, delays 1-8, whose first
-     TR tile no frame reaches: those rows must be exact zeros); the word
-     tiles each launch visits beside the dense count. Times at the main,
-     the Narratives and the speech shapes: the
-     kernel and torch.matmul(K_all, data) each as back-to-back launches
-     between one pair of CUDA events, rotating over operand sets that
-     together exceed the 50 MB L2 (so each launch finds its operands cold),
-     and as single calls. Then the lambda-max's Lanczos step kernel
-     (csrc/lanczos_step.cu) against its plain step on the card, step by
-     step from the same inputs, at n 1,424 (a Narratives inner fold's
-     kernel) and 3,072 (a LeBel fold Gram), 64 steps: basis rows exact, a,
-     b, the residual and the scale within 1e-5 of the scale; lmax_dense
-     on the card within 1e-4 of the CPU's; its device time a step in
-     recurrences back to back, each after its operands were evicted from
-     the L2 and with nothing between, a step with its matvec as
-     lmax_dense runs it, the plain step on the card, a whole lmax_dense
-     call, and the step's byte bound. Then the mixture of experts' combine
-     kernel (csrc/moe_combine.cu) against its plain version at
-     DeepSeek-V2-Lite's training-cell shape (18,432 tokens, top-6, hidden
-     2,048) and at a ragged 1,237 tokens: within one bf16 ulp of each
-     entry, then bit for bit; its time there back to back with the L2
-     cold, as single calls, beside its byte bound, the plain version and
-     the float32 scatter-add it replaced.
-  4. small parity: the port's AbstractTrainer on small synthetic
-     assemblies, on the card and on the CPU, in train/test mode and in
-     concatenated full nested-CV mode on both routes (tall chunked folds:
-     fused; wide kfold_trimmed folds: per-fold with the dual search); then
-     fit_nested_cv on small seeded problems through every other search
-     path: method='eigh' (complement-gram eigh) and 'svd' (spectral),
-     normalpha=False on a wide design (spectral dual), unequal folds (the
-     per-fold loop), voxel chunks in both modes, fast_scan True and 'auto',
-     and permutation significance (the offsets come from a CPU generator,
-     so both devices use the same ones and their p-values must be equal).
-     Same alphas, correlations within 2e-3, median r within 1e-3, the same
-     solver_paths. Then the fused step parallel.nested_cv_step on a seeded
-     problem (T=410, D=12, V=40, 4 equal folds of 10-row chunks) with
-     method 'auto' (Woodbury scan, union refit), 'chol', 'eigh', 'svd' on
-     non-complementary folds, single_alpha=True and use_corr=False: the
-     scan and refit each run took (the step's log line), the same alphas
-     and correlations within 1e-5 on card and CPU. Then the ten Downsampler
-     methods on one small story, card against CPU within 1e-5 of the CPU's
-     largest magnitude. Then the language-model extractor: a tiny GPT-2
-     (2 layers, width 16; a stand-in decoder of that shape without
-     transformers) over HashStubTokenizer fullcontext windows of three
-     small stories, every layer card against CPU within 1e-5 of the CPU's
-     largest magnitude, and the port's trainer on those stories (responses
-     carrying a signal of the CPU's layer-1 features) on both, with the
-     same alphas and the parity bars above. Then the speech extractor: a
-     tiny Wav2Vec2 (2 layers of width 24) in both feature-encoder norm
-     variants ('layer' with stable layer norm, and 'group') and both pools
-     over 180 s of audio, every layer card against CPU within 1e-5 of the
-     CPU's largest magnitude, and phase 13's Narratives trainer on that
-     tiny data dir (120 TRs, 40 voxels) on both, with the same alphas and
-     the parity bars above. Then fit_banded_ridge on small seeded problems
-     (T=240, bands of 24 and 16, V=23 or 80; a wide one; a square one with
-     T_tr = D for method='dual') through every scan route: chol on both
-     sides of its solve association, chunked chol with a tail chunk on a
-     response on the device, host-streamed, dual, forced dual, eigh,
-     svd_fallback, fast_scan True and 'auto', and permutation significance
-     (equal p-values); fit_stacked_ridge on its grouped-Cholesky and
-     spectral refits and its chunked route; variance_partitioning with 2
-     spaces. The same alphas, gammas and solver_paths, correlations within
-     1e-5, stack weights within 1e-4, variance components within 1e-4.
-     Then the command line: cli.run on a small LeBel pickle (4 stories of
-     120 TRs, V=40) with the word rate, then the word rate and 6-wide
-     embeddings --banded and --stacking, and LinearPredictivityModel on a
-     seeded (400, 12) problem in 4 groups, card against CPU: the same
-     alphas, gammas and solver_paths, correlations within 1e-5, mean stack
-     weights within 1e-4, each fold's coefficients within 1e-5 of the
-     CPU's largest.
-  5. main path: AbstractTrainer(...).train() on the card at full width, a
-     LeBel-UTS03-shaped synthetic assembly (85 stories of 320 TRs, 768-wide
-     static embeddings, FIR delays 1-4, V=20484 fsaverage5 vertices,
-     10 alphas, 5 inner folds, chunks of 20 TRs).
-  6. Narratives path: AbstractTrainer(use_train_test_split=False).train()
-     on the card at full width: one 21styear-shaped story (2,249 TRs at
-     1.5 s, 768-wide static embeddings, FIR delays 1-8 so D=6144,
-     V=20484), trimmed 14:-9, fitted as README section 3 does
-     (kfold_trimmed, 5 outer x 5 inner folds, single alpha): full nested-CV
-     mode, per-fold route, dual search.
-  7. fused full-CV route at full size: NestedCVModel(device="cuda")
-     .fit_predict(X, Y) on the benchmarks/full_cv.py problem (T=26880,
-     D=3072, V=20484, rank-256 signal plus unit noise, chunked 5 x 5 folds
-     of 20-row chunks, 10 alphas, return_weights=False), built on the card
-     from a seed; then the same fit with voxel_chunk_size=4096 (chunked
-     downdate, inner scoring and refit), which must select the same alphas
-     on at least 99.9% of the voxels.
-  8. the north-star whole-brain fit (benchmarks/northstar.py, uncut):
-     T=26880 train and 2048 test rows, D=3072, V=95556, the phase 7
-     generator, NestedCVModel(device="cuda").fit_predict in train/test mode
-     three times: (a) voxel_chunk_size=4096, (b) no voxel chunks, (c) 4096
-     with fast_scan='auto' and 1,000-shift permutation significance; the
-     first 64 voxels carry no signal. (a) and (b) must pick the same alpha
-     on at least 99.9% of the voxels with correlations within 1e-4 where
-     they do; (c) must record its guard's decision, agree with (a) on at
-     least 98% of the voxels when it accepted (correlations within 1e-4
-     where the alphas agree), floor its p-values at 1/1001 and keep the
-     median r within 1e-3 of (a)'s. (c)'s p-values of the first 256 voxels
-     must equal a plain float64 torch.roll null on the same predictions and
-     offsets, and the noise-only voxels must not sit at the floor.
-  9. the eigh search at full width: the phase 8 generator at the surface
-     width V=20484, method='auto' (the Cholesky search) against
-     method='eigh', with chunks of 20 rows (unequal folds: the per-fold
-     loop) and of 21 (equal partition folds: complement-gram eigh): the
-     same alpha on at least 99.9% of the voxels, correlations within 2e-3,
-     median r within 1e-3.
- 10. the fused step at full size: (a) bench.py's problem (T=4096, TP=512,
-     D=1536, V=20484, 10 alphas, equal_size_folds(4096, 5, 20): Tva=800,
-     a 4,000-row union, k=96) drawn on the card, nested_cv_step with
-     method 'auto' (Woodbury), 'chol', 'eigh' and 'auto' with
-     fast_scan=True, each one warm run then the median of 3 synchronized
-     walls and the peak memory; the fp32 three pick the same alpha on at
-     least 99.9% of the voxels; the fast scan's agreement; bench.py's stage
-     split (scan, scan at A=1, refit, predict+score, alpha grid and
-     fold-fixed) and achieved TFLOP/s from bench.py's FLOP count. (b) the
-     phase 9 generator at T=26880 (+2048 test rows), D=3072, V=20484 with
-     equal_size_folds(26880, 5, 20) (Tva=5360, k=80): 'auto' against
-     'chol', the same alpha on at least 99.9% of the voxels.
- 11. the other downsamplers at full size: (a) all ten methods on story 0
-     of the phase 5 assembly (about 1,600 words x 768 features, 320 TRs;
-     gabor with freqs 0.1, 0.2, 0.3 Hz and sigma 2 s), card against CPU
-     within 1e-4 of the CPU's largest magnitude, with ms per call; (b)
-     the phase 5 trainer with downsample_config={'method': 'average'} (the
-     two-stage path with per-word TR ids): stage split, median r above
-     AVERAGE_MEDIAN_R_FLOOR, finite metrics, the Cholesky search.
- 12. language-model trainer at full width: a GPT-2-small-shaped model
-     (GPT2Model(GPT2Config()) when transformers imports, else a stand-in
-     decoder of the same shape defined here; random init under
-     torch.manual_seed(0)) through the port's LM extractor and trainer on
-     the card, on the first 12 stories of the phase 5 assembly with their
-     stimuli replaced by fullcontext windows of 256 words over
-     HashStubTokenizer (about 1,600 windows a story: one prefix chain of
-     256, the rest full windows of 257 tokens), layer 9, last-token
-     pooling, batches of 64, the fused Lanczos+FIR stage, LeBel trimming.
-     Checks: (a) story 0's first 64 windows and 8 full windows from its
-     middle, card against CPU within 1e-3 of the CPU's largest magnitude on
-     every layer; (b) the same windows with prefix sharing on and off on
-     the card within 1e-4; (c) 12 kernel launches in the first train();
-     (d) finite metrics and the JAX fit's solver_paths (the dual search);
-     (e) a second train() on the same cache directory runs no forward and
-     gives the same metrics. Prints windows, real and padded tokens,
-     forwards, windows/s and tokens/s, the extractor's summed stage
-     seconds, both runs' stage split, peak memory and median r. Then (f)
-     the port's DeepSeek-V2 module at DeepSeek-V2-Lite's published widths,
-     cut to 4 layers (the first dense, 3 MoE), bf16 weights drawn on the
-     card, through the extractor in dtype 'bfloat16' at batches of 64 over
-     story 0's fullcontext windows (forwards of 64 x 288 tokens, as
-     lebel.train_dsv2lite runs them): the combine kernel's launches, set to
-     0 just before and read just after, equal the MoE layers' calls and
-     the forwards times 3; the same windows again under the profiler give
-     one litcoder.lm.moe.combine span a launch, each with fused 1, and
-     their device time a call.
- 13. README section 3 with speech features at full width: a Narratives
-     data dir written from a seed (one 21styear story of 240 TRs of 1.5 s,
-     words at about 2.5 words/s, 360 s of 16 kHz audio, an empty
-     placeholder with the BOLD NIfTI's name) and the surface cache seeded
-     with its (240, 20484) responses, a planted signal of the delayed word
-     rate plus noise, so AssemblyGenerator.generate_assembly('narratives',
-     ...) takes the processor's cache-hit path and needs no nibabel; then
-     the factory's speech extractor on Wav2Vec2Model(Wav2Vec2Config())
-     (wav2vec2-base's width and depth, random init under
-     torch.manual_seed(0)) with cli.py's windows of 16 s every 0.1 s
-     (3,441 windows), layer 9, last-frame pooling, beside the wordrate
-     extractor, into AbstractTrainer(use_train_test_split=False) with
-     delays 1-8 (D = 8 x 768 + 8), trims 14:-9 and section 3's fit.
-     Checks: (a) the first 4 windows card against CPU within 1e-3 of the
-     CPU's largest magnitude on every layer; (b) 1 kernel launch in
-     train(); (c) finite metrics and the JAX fit's solver_paths (per-fold,
-     dual search); (d) a second train() on the same cache directory runs
-     no forward and gives the same metrics bit for bit. Prints windows,
-     windows/s, audio seconds per wall second, the host preprocessing of
-     64 windows timed alone, both runs' stage split, peak memory and
-     median r.
- 14. README section 4's --banded fit at full width, on phase 5's assembly
-     with the word rate and the embeddings as two feature spaces
-     (AbstractTrainer(concat_features=False), delays 1-4, D = 4 + 3,072,
-     LeBel trims, 10 alphas, 5 inner folds of 20-row chunks): (a)
-     BandedRidgeModel(n_gammas=10): 85 kernel launches, finite metrics,
-     best_gammas of shape (V, 2), the JAX fit's routes (chol scan,
-     grouped_chol refit), median r above MEDIAN_R_FLOOR; (b)
-     StackedRidgeModel: 85 launches, stack weights on the simplex (non-
-     negative, rows summing to 1 within 1e-5), the blend's median r beside
-     each space's; (c) variance_partitioning of (a)'s structured spaces:
-     finite, r2_AB - unique_A - unique_B - shared within 1e-6 of 0; (d)
-     fit_banded_ridge at benchmarks/banded_scan.py's surface problem,
-     uncut (T=26,880, bands 3,072 + 2,048 + 4, V=20,484, 2,048 test rows,
-     drawn on the card), 5 gammas, once with Y on the card and once with Y
-     as host numpy streamed in voxel chunks of 8,192: the same (gamma,
-     alpha) on at least 99.9% of the voxels, correlations within 1e-4
-     where they agree. Each fit prints its wall, stage split, peak memory,
-     median r and route.
- 15. README section 4's command line at full width: (a) phase 5's assembly
-     saved as a pickle (85 stories x 305 rows x 20,484 vertices, held
-     twice by the assembly: about 4.3 GB; write and load timed) and
-     cli.main(argv) with the argv a user would type (--dataset_type lebel
-     --assembly_path ... --modality embeddings --model_name random-static
-     --vector_path <phase 5's .kv> --ndelays 4 --lookback 256 --cache_dir
-     ... --results_dir ... --logger_backend none; the device defaults to
-     the card): 85 kernel
-     launches, the same alphas, median r within 1e-6 and solver_paths as
-     phase 5's trainer fitted with the CLI's train() arguments (one alpha
-     for all voxels: cli.py's default), median r above MEDIAN_R_FLOOR;
-     (b) --modalities wordrate embeddings with --banded, then --stacking:
-     their defaults are phase 14 (a)-(b)'s arguments, so 85 launches each
-     and phase 14's alphas (and gammas) and median r within 1e-6; (c)
-     sweeps.run_grid_sweep over layers 3, 6, 9 and 11 of phase 12's 12
-     stories saved as a pickle, the GPT-2-small-shaped model and
-     HashStubTokenizer injected through extractor_config_overrides and the
-     cache keys of phase 12 (model name, lookback 256, fullcontext, last
-     token, lebel): no window extracted, 48 launches, then a second call
-     that resumes from its checkpoints (no cli.run, no new run directory,
-     the same rows); (d) LinearPredictivityModel.fit at T=26,880, D=3,072,
-     V=20,484 (phase 9's generator) in 5 GroupKFold folds of groups of 320
-     rows: seconds per fold's SVD solve, fold 1's coefficients of 256
-     voxels within 1e-4 of a float64 solve on the card (relative to its
-     largest), median r above FUSED_MEDIAN_R_FLOOR. Each run prints its
-     wall, stage split, peak memory and the card.
- 16. the mesh paths (parallel/mesh.py, parallel/tp.py) on meshes that
-     repeat cuda:0: (a) phase 8 (b)'s north-star fit on 8 entries (V % 8
-     = 4: the pad runs) against phase 8 (b) (the same alpha on 99.9% of
-     the voxels, median r within 1e-5, its solver_paths), with n_devices=1
-     (every alpha, correlations within 1e-6), and make_mesh(2) refused on
-     one card; (b) phase 14 (a)-(b)'s trainers with the banded and stacked
-     models on 4 entries (85 launches each, 99.9% of phase 14's picks,
-     median r within 1e-4, the spectral and per-voxel-index Cholesky
-     refits); (c) phase 10's 'auto' step on 4 entries (99.9% of the
-     alphas, correlations within 1e-5, shards of V/4); (d) phase 12's model
-     on a (2, 2) mesh over two of its stories and phase 13's encoder on
-     (1, 2) over 30 s of its audio, every layer within 1e-4 of its largest
-     magnitude against the unsharded extractor, windows/s beside the
-     unsharded rate, and phase 12's trainer on those TP features (its
-     other stories from phase 12's cache): 12 launches, phase 12's alphas
-     on 99.9% of the voxels; (e) phase 15 (a)'s argv with --n_devices 1
-     (85 launches, its alphas and median r exactly), and --tp_data 1
-     --tp_model 2 refused by make_lm_mesh on one card.
- 17. the examples on the card: the torch twins of examples/*.py and of the
-     quickstart notebook, each called with device="cuda", and the
-     benchmark guard, on earlier phases' artefacts: (a)
-     examples/torch_train_simple.py on phase 15 (a)'s pickle against the
-     word-rate trainer built here (the same alphas, median r within 1e-6);
-     (b) torch_example.py --modality language_model --layer_idx 9
-     --lookback 256 on phase 15 (c)'s pickle of phase 12's stories, with
-     phase 12's model and activation cache (12 kernel launches, phase 12's
-     alphas on at least 99.9% of the voxels); (c) torch_sweep_grid.py over
-     layers 3 and 9 of (a)'s pickle (one summary row per grid point; a
-     second call resumes in under 1 s with the same rows); (d)
-     torch_wide_all_layer_fit.py at full width: every layer of a
-     random-init GPT2Config() (12 x 768) over 4,000 words (about 700 TRs),
-     D = 36,864 with 4 delays, V = 20,484 (the log names the dual search,
-     median r above WIDE_MEDIAN_R_FLOOR), and at its default size on the
-     card and the CPU (the same alphas, median r within 1e-3); (e)
-     torch_multichip_fit.py on 8 entries of cuda:0 against the machine's
-     one card (the same alphas in both fits); (f) torch_tp_extraction.py
-     on a (2, 2) mesh of cuda:0 (one kernel launch per story) against the
-     same trainer unsharded (median r within 1e-3); (g)
-     torch_quickstart.ipynb's code cells in order (one launch, its fused
-     cell within 1e-4 of the two-stage design); (h)
-     utils/benchguard.py: probe_backend() returns (True, 0), and
-     run_guarded over a live command that prints one JSON line returns
-     that line, not stale, and writes its snapshot. Prints each run's
-     wall, launches and median r, and phase 17's wall.
-Phases 5, 6, 12, 13, 14 (a)-(b), 15 (a)-(c), 16's trainers and 17's twins
-set the FIR kernel's launch count to 0 just before they run and read it
-just after; phases 7-10 call the fit or the step directly and print each
-fit's wall, median r, route and peak device memory. The step kernel's
-launch count is set to 0 as each of phases 3-17 begins and read as it
-ends. The last two lines are a JSON record of the three kernels (the FIR
-kernel's launches on the main path, on the Narratives, LM, speech,
-banded, command-line, mesh and example paths, and its times at the
-Narratives and the speech shapes; the step kernel's launches by phase,
-its largest gap to the plain step and its times at both sizes; the
-combine kernel's launches in phase 12 (f) and in phase 3, and its times)
-and
+Each card check has one home. A kernel's agreement with its plain version
+is one function here (check_step_kernel, check_combine_kernel) that phase 3
+runs at the main path's shapes and the kernel's card tests
+(tests/test_torch_lanczos_step.py, tests/test_torch_moe_combine.py) run at
+theirs; the Lanczos+FIR kernel's checks, which no card test makes, are
+phase 3's own. What a benchmark cell (BENCHMARK.json, cardbench/) already
+checks at the same shape is not repeated here: its output against the
+plain reference, and the walls, throughputs and profiles of the paths it
+measures. The script keeps the build, the kernels' checks and timings for
+PERF.md's kernel table, and the full-width checks no cell makes: card
+against CPU, launch counts, routes and floors. So a new kernel's check
+goes in one function that its card test and phase 3 share, its timing in
+phase 3, and a path that a cell runs and judges gets a phase only for a
+check the cell does not make. Its traffic generators are the benchmark's
+(cardbench/traffic/).
+
+Phases; any failure exits non-zero and prints no result:
+  1. device: a CUDA card is required; its name and power limit.
+  2. build: nvcc builds csrc/lanczos_fir.cu, lanczos_step.cu and
+     moe_combine.cu (ptxas' registers, shared memory, spills); the
+     optional packages' versions.
+  3. kernels: the Lanczos+FIR kernel against its plain version within
+     1e-4 at the main shape (sorted, permuted, with a 60 s silent gap,
+     descending TR times), the shapes of tests/test_pallas_kernels.py, two
+     scan passes, the Narratives 21styear shape and the speech shape (rows
+     no frame reaches exactly zero), with its times at the main, Narratives
+     and speech shapes; the step kernel against the plain step, step by
+     step, at n 1,424 and 3,072 (basis rows exact, the rest within 1e-5 of
+     the scale) and lmax_dense on the card within 1e-4 of the CPU's, with
+     the step's times; the MoE combine against its plain version at N
+     18,432 and 1,237, k 6, H 2,048 (one launch, within one bf16 ulp, then
+     bit for bit), with its times at the first.
+  4. small parity, card against CPU (the same alphas and solver_paths,
+     correlations within 2e-3, median r within 1e-3 unless named): the
+     trainer in train/test mode and on both full-CV routes; fit_nested_cv
+     through every other search path, voxel chunks, fast_scan and
+     permutation significance (equal p-values); nested_cv_step's six
+     routes (1e-5); the ten Downsampler methods (1e-5 of the CPU's
+     largest); a tiny GPT-2's layers (1e-5) and trainer; a tiny Wav2Vec2's
+     layers in both norm variants (1e-5) and the Narratives trainer; every
+     banded scan route, both stacking refits and variance partitioning
+     (1e-5; stack weights and components 1e-4); three cli.run cases and a
+     least-squares fit (coefficients 1e-5).
+  5. the LeBel-UTS03-shaped trainer at full width (85 stories x 320 TRs,
+     768-wide embeddings, V 20,484): at least 85 launches, median r above
+     0.2. Its assembly feeds phases 11-17.
+  6. the Narratives trainer at full width: one 21styear-shaped story
+     (2,249 TRs of 1.5 s, D 8 x 768, V 20,484), trims 14:-9, README section
+     3's fit in full nested-CV mode: the per-fold dual route, at least one
+     launch, median r above 0.25.
+  7. the fused full-CV route (T 26,880, D 3,072, V 20,484), whole and in
+     voxel chunks of 4,096: median r above 0.5, the same alpha on 99.9% of
+     the voxels, correlations within 1e-4.
+  8. the north-star fit (26,880 + 2,048 rows, D 3,072, V 95,556, 64
+     noise-only voxels): (a) chunks of 4,096 and (b) none agree on 99.9%
+     within 1e-4; (c) chunks, fast_scan='auto' and 1,000 permutations: the
+     guard's decision, 98% agreement with (a) when it accepted, p at or
+     above 1/1001, median r within 1e-3, 256 p-values equal to a plain
+     torch.roll null, the noise-only voxels off the floor.
+  9. method='eigh' against 'auto' at V 20,484, chunks of 20 and 21: the
+     same alpha on 99.9%, correlations within 2e-3, median r within 1e-3.
+ 10. nested_cv_step at bench.py's problem ('auto', 'chol', 'eigh', the fast
+     scan; median of 3 walls) and at D 3,072 ('auto' and 'chol'): median r
+     above 0.3 and 0.5, the same alpha on 99.9% within 1e-4.
+ 11. the ten methods on a full-size story (1e-4, ms per call); phase 5's
+     trainer with the per-TR average: median r above 0.35.
+ 12. a GPT-2-small-shaped random-init model through the LM extractor and
+     trainer on 12 of phase 5's stories of fullcontext windows, twice on
+     one activation cache: (c) 12 launches, (d) the dual search, (e) the
+     second train() runs no forward, with the same alphas and correlations
+     within 1e-6; the unsharded windows/s phase 16 (d) prints. (f) the
+     DeepSeek-V2 module at DeepSeek-V2-Lite's widths, cut to 4 layers (3
+     MoE), bf16, through the extractor at batches of 64 x 288 tokens: one
+     combine launch for each MoE layer call, and under the profiler one
+     litcoder.lm.moe.combine span a launch, each fused 1.
+ 13. README section 3 with speech features: a seeded Narratives data dir
+     through AssemblyGenerator, wav2vec2-base-shaped features (3,441
+     windows) beside the word rate, the full-CV trainer: (a) 4 windows
+     card against CPU within 1e-3, (b) 1 launch, (c) the per-fold dual
+     route, (d) a cached second train() bit for bit.
+ 14. README section 4's --banded fit on phase 5's assembly: the per-space
+     trainer with BandedRidgeModel (median r above 0.2) and
+     StackedRidgeModel (stack weights on the simplex within 1e-5), 85
+     launches each; variance partitioning (its identity within 1e-6);
+     fit_banded_ridge at benchmarks/banded_scan.py's surface problem with Y
+     on the card and streamed from the host (median r above 0.5, the same
+     picks on 99.9% within 1e-4).
+ 15. the command line at full width: cli.main against phase 5's trainer
+     (the same alphas, median r within 1e-6), --banded and --stacking
+     against phase 14, a resumable layer sweep over phase 12's cache,
+     LinearPredictivityModel at T 26,880, D 3,072, V 20,484 (256 voxels
+     within 1e-4 of a float64 solve).
+ 16. the mesh paths on meshes of cuda:0: phase 8 (b) on 8 entries and with
+     n_devices=1, phase 14's trainers and phase 10's step on 4,
+     tensor-parallel GPT-2 and wav2vec2 (1e-4) and the LM trainer on those
+     features, phase 15 (a) with --n_devices 1; the one-card refusals.
+ 17. the examples' torch twins and the benchmark guard, on earlier phases'
+     artefacts.
+The last two lines are a JSON record of the three kernels (the
+Lanczos+FIR kernel's launches by path and its times; the step kernel's
+launches by phase, its largest gap to the plain step and its times; the
+combine's launches in phase 12 (f) and in phase 3, and its times) and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of litcoder_core_tpu.
@@ -308,6 +121,9 @@ import time
 import zlib
 
 import numpy as np
+
+from cardbench.traffic.signal import signal_problem
+from cardbench.traffic.stories import fullcontext_windows
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -363,9 +179,8 @@ MAX_HOLD_DOUBLINGS = 4
 # The lambda-max's Lanczos step kernel (csrc/lanczos_step.cu) at the main
 # path's sizes: n 1,424 (a Narratives 21styear inner fold's kernel) and
 # 3,072 (a LeBel fold Gram, 768 x 4 delays), the 64 steps lmax_dense runs.
-# Each step from the same inputs through the kernel and the plain step must
-# agree within STEP_RTOL of the step's scale (the card tests' bar). Timed
-# as whole recurrences back to back: cold, one recurrence a run after
+# lmax_dense on the card must agree with the CPU's within 10 STEP_RTOL.
+# Timed as whole recurrences back to back: cold, one recurrence a run after
 # STEP_EVICT_BYTES (more than the 50 MB L2) were written, STEP_REPEATS
 # runs; warm, STEP_WARM_ROUNDS recurrences a run. A run enqueues at most
 # a few hundred launches: the host blocks once about a thousand wait
@@ -381,18 +196,21 @@ STEP_WARM_ROUNDS = 4
 # DeepSeek-V2-Lite's training-cell shape (64 windows x 288 tokens, top-6,
 # hidden 2,048) and at a ragged token count; kernel and plain version must
 # agree bit for bit (the same products added in the same order), and first
-# within one bf16 ulp of each entry. Timed back to back (the experts' rows
-# alone are 453 MB, past the L2, and COMBINE_EVICT_BYTES are written before
-# each run), COMBINE_ROUNDS launches a run, beside the plain version and the
-# float32 scatter-add the port used before (library_ms, never called by it).
+# within one bf16 ulp of each entry. Timed at the first shape back to back
+# (the experts' rows alone are 453 MB, past the L2, and COMBINE_EVICT_BYTES
+# are written before each run), COMBINE_ROUNDS launches a run, beside the
+# plain version and the float32 scatter-add the port used before
+# (library_ms, never called by it).
 COMBINE_SHAPES = ((18432, 6, 2048), (1237, 6, 2048))
 COMBINE_EVICT_BYTES = 64e6
 COMBINE_ROUNDS = 20
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
-# float32 outside the tensor cores (the kernel's FMAs).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
+# H100 SXM published peaks, the benchmark's (cardbench/peaks.json): HBM
+# bandwidth and float32 outside the tensor cores (the kernel's FMAs).
+with open(os.path.join(REPO, "cardbench", "peaks.json")) as _f:
+    _PEAKS = json.load(_f)
+PEAK_BYTES_PER_S = _PEAKS["bytes_per_s"]
+PEAK_F32_FLOP_PER_S = _PEAKS["f32_flop_per_s"]
 
 # Full-size configuration (LeBel UTS03 shape, GPT-2-small width).
 N_STORIES, N_TR, TR_SECONDS, WORDS_PER_S = 85, 320, 2.0, 2.5
@@ -426,9 +244,10 @@ NARR_NOISE_STD = 1.0
 # printed ceiling while far above chance.
 NARR_MEDIAN_R_FLOOR = 0.25
 
-# The fused full-CV problem of benchmarks/full_cv.py: X (T, D) normal,
-# Y = X W M + unit noise with W (D, 256) / sqrt(D) and M (256, V) / 16, so
-# each voxel's signal variance is about 1 and its r ceiling about 0.707.
+# The fused full-CV problem of benchmarks/full_cv.py, drawn by the
+# benchmark's signal_problem: X (T, D) normal, Y = X W M + unit noise with
+# W (D, 256) / sqrt(D) and M (256, V) / 16, so each voxel's signal variance
+# is about 1 and its r ceiling about 0.707.
 FUSED_T, FUSED_D, FUSED_RANK, FUSED_CHUNK = 26880, 3072, 256, 20
 FUSED_MEDIAN_R_FLOOR = 0.5
 
@@ -973,11 +792,12 @@ def step_operands(n, m, device, gen):
 
 def check_step_kernel(G, m):
     """Each of m steps of the recurrence on G from the same inputs, through
-    the kernel and through the plain step on the card: basis rows exact,
-    the state's b exactly the step's b, and a, b, b v_next (the residual)
-    and the scale within STEP_RTOL of the scale; then both go on from the
-    plain step's state. Returns the largest gap, as a share of the
-    scale."""
+    LanczosSteps (the kernel on a card) and through the plain step: basis
+    rows exact, the state's b exactly the step's b, and a, b, b v_next (the
+    residual) and the scale within STEP_RTOL of the scale; then both go on
+    from the plain step's state. Returns the largest gap, as a share of the
+    scale. Phase 3 runs it at STEP_SIZES, and
+    tests/test_torch_lanczos_step.py's card test at its CARD_SIZES."""
     import torch
 
     from litcoder_core_torch.ops import lanczos_step as ls
@@ -1134,6 +954,44 @@ def scatter_add_combine(ys, order, weights):
     return out.to(ys.dtype)
 
 
+def check_combine_kernel(ys, pos, weights):
+    """The MoE combine kernel against its plain version on the card from
+    the same bf16 rows, positions and float32 weights: one launch, a bf16
+    (n, h) result, each entry within one bf16 ulp, then bit for bit (the
+    same products added in the same slot order, each rounded), and a
+    second call the same bits. The ulp bar is checked first, so a failure
+    shows which of the two broke. Returns the largest gap in bf16 ulps.
+    Phase 3 runs it at COMBINE_SHAPES, and
+    tests/test_torch_moe_combine.py's card test at its shapes."""
+    import torch
+
+    from litcoder_core_torch.ops import moe_combine as mc
+
+    n, h = weights.shape[0], ys.shape[1]
+    before = mc.launches
+    got = mc.moe_combine(ys, pos, weights)
+    torch.cuda.synchronize()
+    if mc.launches != before + 1:
+        raise AssertionError(f"moe_combine launched {mc.launches - before} "
+                             f"times for one call at N={n}")
+    want = mc.moe_combine_reference(ys, pos, weights)
+    if got.dtype != torch.bfloat16 or got.shape != (n, h):
+        raise AssertionError(f"moe_combine gave {got.dtype} {got.shape}")
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp(min=2.0 ** -126))) - 7)
+    ulps = float(((got.float() - want.float()).abs() / spacing).max())
+    if ulps > 1:
+        raise AssertionError(f"moe_combine is {ulps:g} bf16 ulp from its "
+                             f"plain version at N={n}")
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"moe_combine differs from its plain version "
+                             f"in {differ} entries at N={n}")
+    if not torch.equal(got, mc.moe_combine(ys, pos, weights)):
+        raise AssertionError(f"moe_combine's second call differs at N={n}")
+    return ulps
+
+
 def combine_kernel_phase(device):
     """The MoE combine kernel against its plain version on the card at
     COMBINE_SHAPES; its times at the first. Returns the kernel's record."""
@@ -1153,29 +1011,13 @@ def combine_kernel_phase(device):
     for n, k, h in COMBINE_SHAPES:
         ys, order, weights = combine_operands(n, k, h, 64, gen)
         pos = mc.inverse_order(order)
-        got = mc.moe_combine(ys, pos, weights)
-        torch.cuda.synchronize()
-        want = mc.moe_combine_reference(ys, pos, weights)
-        gap = (got.float() - want.float()).abs()
-        spacing = torch.exp2(torch.floor(torch.log2(
-            want.float().abs().clamp(min=2.0 ** -126))) - 7)
-        ulps = float((gap / spacing).max())
-        differ = int((got != want).sum())
-        former = int((scatter_add_combine(ys, order, weights) != want).sum())
-        print(f"  moe_combine N={n} k={k} H={h}: {differ} of {got.numel()} "
-              f"entries differ from the plain version, at most {ulps:g} "
-              f"bf16 ulp (the former scatter-add differs in {former})",
-              flush=True)
-        if ulps > 1:
-            raise AssertionError(f"moe_combine is {ulps:g} bf16 ulp from "
-                                 f"its plain version at N={n}")
-        if differ:
-            raise AssertionError(f"moe_combine differs from its plain "
-                                 f"version in {differ} entries at N={n}")
+        ulps = check_combine_kernel(ys, pos, weights)
+        print(f"  moe_combine N={n} k={k} H={h}: the plain version's bits "
+              f"(largest gap {ulps:g} bf16 ulp)", flush=True)
         if (n, k, h) == COMBINE_SHAPES[0]:
             record.update(shape=dict(n=n, k=k, h=h),
                           **time_combine(ys, order, pos, weights))
-        del ys, order, weights, pos, got, want, gap, spacing
+        del ys, order, weights, pos
     record["launches"] = mc.launches - launches0
     t = record
     print(f"  moe_combine at N={t['shape']['n']}: {t['ms']:.4f} ms back to "
@@ -1183,8 +1025,7 @@ def combine_kernel_phase(device):
           f"{t['bound_ms']:.4f} ms, {t['bytes']:,} B at 3.35 TB/s); single "
           f"call {t['ms_single_call']:.4f} ms; plain {t['plain_ms']:.4f} ms;"
           f" former scatter-add (library_ms) {t['library_ms']:.4f} ms; "
-          f"{t['launches']} launches",
-          flush=True)
+          f"{t['launches']} launches", flush=True)
     return record
 
 
@@ -1656,15 +1497,15 @@ def main_path_phase(workdir, smi_line):
     return launches, asm, kv_path
 
 
-def narratives_phase(workdir, smi_line):
+def narratives_phase(workdir):
     """One 21styear-shaped story through AbstractTrainer.train() in
-    concatenated full nested-CV mode at GPT-2-small width."""
-    import torch
-
+    concatenated full nested-CV mode at GPT-2-small width: the per-fold
+    dual route, the Lanczos+FIR kernel at the Narratives shape, the 14:-9
+    trims, median r above NARR_MEDIAN_R_FLOOR. Returns the kernel's
+    launches."""
     from litcoder_core_torch.ops import lanczos_fir as lf
 
     kv_path = os.path.join(workdir, "narr768.kv")
-    t0 = time.perf_counter()
     asm, ceiling = build_assembly(zlib.crc32(b"narratives-21styear"), 1,
                                   NARR_TR, EMB_DIM, N_VERTICES, VOCAB,
                                   kv_path, NARR_NOISE_STD,
@@ -1672,48 +1513,27 @@ def narratives_phase(workdir, smi_line):
                                   delays=NARR_DELAYS, lebel=False)
     print(f"  synthetic story: {NARR_TR} TRs of {NARR_TR_SECONDS} s, "
           f"{len(asm.get_words()[0])} words, {N_VERTICES} vertices, "
-          f"D = {EMB_DIM} x {len(NARR_DELAYS)}, ceiling r {ceiling:.4f}, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"D = {EMB_DIM} x {len(NARR_DELAYS)}, ceiling r {ceiling:.4f}",
+          flush=True)
     trainer = make_trainer(asm, kv_path, "cuda",
                            os.path.join(workdir, "narr_results"),
                            full_cv=True, delays=NARR_DELAYS)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     lf.launches = 0
-    t0 = time.perf_counter()
     metrics = trainer.train(**NARR_FIT)
-    wall = time.perf_counter() - t0
     launches = lf.launches
-    peak = torch.cuda.max_memory_allocated()
 
     check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10),
                   PER_FOLD_DUAL_PATHS)
-    print(f"  lanczos_fir launches {launches}; n_majority_significant "
-          f"{metrics['n_majority_significant']}", flush=True)
-    report_path_run(metrics, wall, peak, smi_line, NARR_MEDIAN_R_FLOOR)
+    print(f"  lanczos_fir launches {launches}; median r "
+          f"{metrics['median_score']:.6f} (floor {NARR_MEDIAN_R_FLOOR}), "
+          f"n_majority_significant {metrics['n_majority_significant']}; "
+          f"solver_paths {metrics['solver_paths']}", flush=True)
+    if not metrics["median_score"] > NARR_MEDIAN_R_FLOOR:
+        raise AssertionError(f"median r {metrics['median_score']} <= "
+                             f"{NARR_MEDIAN_R_FLOOR}")
     if launches < 1:
         raise AssertionError("the kernel did not run on the Narratives path")
     return launches
-
-
-def signal_problem(n_rows, n_voxels, seed, n_null=0):
-    """X (n_rows, D) normal and Y = X W M + unit noise, W (D, 256) / sqrt(D)
-    and M (256, V) / 16 (benchmarks/full_cv.py, benchmarks/northstar.py),
-    built on the card from a seed; the first n_null columns of M are zeroed
-    after the draw, so those voxels are pure noise and the rest unchanged."""
-    import torch
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    X = torch.randn((n_rows, FUSED_D), device=dev, generator=gen)
-    W = torch.randn((FUSED_D, FUSED_RANK), device=dev,
-                    generator=gen) / FUSED_D ** 0.5
-    M = torch.randn((FUSED_RANK, n_voxels), device=dev,
-                    generator=gen) / FUSED_RANK ** 0.5
-    M[:, :n_null] = 0.0
-    Y = (X @ W) @ M
-    Y += torch.randn(Y.shape, device=dev, generator=gen)
-    return X, Y
 
 
 def timed_fit(label, smi_line, *args, **kw):
@@ -1770,7 +1590,8 @@ def fused_full_cv_phase(smi_line):
     """The benchmarks/full_cv.py problem through NestedCVModel.fit_predict
     in full nested-CV mode: the fused route at full size, whole and in
     voxel chunks."""
-    X, Y = signal_problem(FUSED_T, N_VERTICES, 0)
+    X, Y = signal_problem(FUSED_T, FUSED_D, N_VERTICES, FUSED_RANK,
+                          n_null=0, seed=0, device="cuda")
     results = {}
     for chunk in (None, NS_CHUNK):
         label = (f"T={FUSED_T} D={FUSED_D} V={N_VERTICES}, "
@@ -1788,46 +1609,6 @@ def fused_full_cv_phase(smi_line):
     agreement("chunked vs whole (mean alphas over the folds)",
               results[NS_CHUNK][1], results[None][1], results[NS_CHUNK][0],
               results[None][0], 0.999, 1e-4)
-
-
-# Kernel families of a fit's device time, by substrings of kernel names.
-KERNEL_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma")),
-                   ("cholesky", ("potrf",)), ("triangular solve", ("trsm",)),
-                   ("eigh", ("syev", "stedc", "sytrd", "ormtr", "steqr",
-                             "larft", "larfb")),
-                   ("fft", ("fft",)))
-
-
-def profile_fit(label, smi_line, *args, **kw):
-    """One more fit under torch.profiler: device time of every CUDA kernel,
-    summed by family, the busiest kernels, and their sum over the wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        timed_fit(f"{label} under torch.profiler", smi_line, *args, **kw)
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
-    total = sum(by_name.values())
-    families = {}
-    for name, ms in by_name.items():
-        family = next((f for f, keys in KERNEL_FAMILIES
-                       if any(k in name.lower() for k in keys)), "other")
-        families[family] = families.get(family, 0.0) + ms
-    ranked = dict(sorted(families.items(), key=lambda item: -item[1]))
-    print(f"  {label}, profiled: wall {wall:.3f} s, CUDA kernel time "
-          f"{total:.1f} ms ({total / 1e3 / wall:.1%} of the wall) in "
-          f"{len(by_name)} kernel names; by family (ms): "
-          f"{json.dumps({f: round(ms, 1) for f, ms in ranked.items()})}",
-          flush=True)
-    for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
-        print(f"    {ms:10.1f} ms  {name[:90]}", flush=True)
 
 
 def roll_permutation_p(y_true, y_pred, obs, offsets):
@@ -1925,7 +1706,8 @@ def northstar_phase(smi_line):
     Returns (b)'s (metrics, alphas), which phase 16 (a) is held to."""
     import torch
 
-    X, Y = signal_problem(NS_T + NS_TEST, NS_V, 1, n_null=NS_NULL)
+    X, Y = signal_problem(NS_T + NS_TEST, FUSED_D, NS_V, FUSED_RANK,
+                          n_null=NS_NULL, seed=1, device="cuda")
     args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
     print(f"  T={NS_T} train + {NS_TEST} test rows, D={NS_D}, V={NS_V} "
           f"({NS_NULL} of them noise only): Y {Y.numel() * 4 / 1e9:.2f} GB "
@@ -1961,7 +1743,6 @@ def northstar_phase(smi_line):
     if p.min() < floor or dm > 1e-3:
         raise AssertionError("(c): p under the floor or median r moved")
     permutation_check(args, mc, ac)
-    profile_fit("(a)", smi_line, *args, voxel_chunk_size=NS_CHUNK)
     del X, Y, args
     torch.cuda.empty_cache()
     return mb, ab
@@ -1975,7 +1756,8 @@ def eigh_search_phase(smi_line):
     rows, so it takes the complement-gram eigh."""
     import torch
 
-    X, Y = signal_problem(NS_T + NS_TEST, N_VERTICES, 2)
+    X, Y = signal_problem(NS_T + NS_TEST, FUSED_D, N_VERTICES, FUSED_RANK,
+                          n_null=0, seed=2, device="cuda")
     args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
     grid = np.logspace(-1, 8, 10)
     for chunk_length, search in ((20, "per_fold_loop_eigh"),
@@ -2015,27 +1797,10 @@ def bench_problem(seed):
     return X, Y, Xt, Yt
 
 
-def step_flops(t_all, t_test, d, v, a, t_union, t_val, n_folds):
-    """bench.flops_estimate with the problem's sizes as arguments: the
-    Woodbury scan's and the union refit's products, factorizations and
-    scoring. Matmul 2mnk, eigh 10 n^3, Cholesky n^3 / 3."""
-    f = 2.0 * t_union * d * d + 2.0 * t_union * d * v + 10.0 * d ** 3
-    per_fold = (2.0 * t_val * d * d + 2.0 * t_val * d * v
-                + 2.0 * d * d * v + 24 * 4.0 * t_val * d
-                + a * (2.0 * t_val * t_val * d + t_val ** 3 / 3.0 * 2.0
-                       + 4.0 * t_val * t_val * d + 2.0 * t_val * d * v
-                       + 6.0 * t_val * v))
-    f += n_folds * per_fold
-    k = t_all - t_union
-    f += 2.0 * k * d * d + 2.0 * d * d * v + 4.0 * k * d * v + 2.0 * d * d * v
-    f += 2.0 * t_test * d * v + 6.0 * t_test * v
-    return f
-
-
 def timed_step(label, smi_line, args, folds, grid, runs, **kw):
     """nested_cv_step on the card: one warm run (its route logged), then
     the median of `runs` synchronized walls and the peak device memory of
-    those runs, the data included. Returns (alphas, metrics dict, wall)."""
+    those runs, the data included. Returns (alphas, metrics dict)."""
     import torch
 
     from litcoder_core_torch.parallel.step import nested_cv_step
@@ -2057,73 +1822,20 @@ def timed_step(label, smi_line, args, folds, grid, runs, **kw):
     peak = torch.cuda.max_memory_allocated()
     corr, _, alphas, _ = check_step_result(label, out, args[1].shape[1],
                                            grid)
-    wall = float(np.median(walls))
     metrics = {"correlations": corr, "median_score": float(np.median(corr))}
     print(f"  {label}: {log.messages[0]}; walls "
-          f"{', '.join(f'{w:.4f}' for w in walls)} s (median {wall:.4f}), "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (median "
+          f"{float(np.median(walls)):.4f}), "
           f"median r {metrics['median_score']:.6f}, max_memory_allocated "
           f"{peak} bytes ({peak / 2**30:.2f} GiB), card: {smi_line}",
           flush=True)
-    return alphas, metrics, wall
-
-
-def stage_split(args, folds, grid, iters=3):
-    """bench.stage_breakdown on the card: the scan stage alone, the scan at
-    A=1, the union refit from the scan's union products (rebuilt untimed),
-    prediction and scoring; each one warm call, then the median of `iters`
-    synchronized calls. The alpha grid's share is (A - 1) marginal alphas
-    scaled to A, the rest of the scan is fold-fixed."""
-    import torch
-
-    from litcoder_core_torch.parallel import step
-    from litcoder_core_torch.utils.device import matmul_tf32
-
-    dev = torch.device("cuda")
-    X, Y, Xt, Yt = args
-    alphas = torch.as_tensor(grid, device=dev)
-    tr, va = (torch.as_tensor(f, dtype=torch.long, device=dev)
-              for f in folds)
-    kw = dict(normalpha=True, use_corr=True, single_alpha=False,
-              singcutoff=1e-10, method="auto", complement=True,
-              scan="woodbury", fast_scan=False)
-
-    def timed(fn):
-        out = fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        return float(np.median(walls)), out
-
-    scan_s, best = timed(lambda: step._scan_best_alphas(X, Y, alphas, tr, va,
-                                                        **kw))
-    scan_a1_s, _ = timed(lambda: step._scan_best_alphas(X, Y, alphas[:1], tr,
-                                                        va, **kw))
-    with matmul_tf32(False):
-        union = torch.sort(va.reshape(-1)).values
-        Xu = X[union]
-        lam_u, Q = torch.linalg.eigh(Xu.T @ Xu)
-        XtY_u = Xu.T @ Y[union]
-    refit_s, weights = timed(lambda: step._refit_union_woodbury(
-        X, Y, lam_u, Q, XtY_u, union, best, alphas, True))
-    score_s, _ = timed(lambda: step._predict_and_score(Xt, Yt, weights))
-    a_n = len(grid)
-    grid_s = min(max(scan_s - scan_a1_s, 0.0) / max(a_n - 1, 1) * a_n, scan_s)
-    stages = {"stage_scan_s": scan_s, "stage_scan_a1_s": scan_a1_s,
-              "stage_refit_s": refit_s, "stage_predict_score_s": score_s,
-              "scan_alpha_grid_s": grid_s,
-              "scan_fold_fixed_s": scan_s - grid_s}
-    print(f"  stage split (s): {json.dumps(stages)}", flush=True)
+    return alphas, metrics
 
 
 def bench_step_phase(smi_line):
     """bench.py's fused step on the card: Woodbury, Cholesky and eigh scans
-    and the fast scan, their walls, agreement, stage split and TFLOP/s.
-    Returns the 'auto' step's (alphas, metrics), which phase 16 (c) is
-    held to."""
+    and the fast scan, their walls and agreement. Returns the 'auto' step's
+    (alphas, metrics), which phase 16 (c) is held to."""
     import torch
 
     from litcoder_core_torch.parallel.step import equal_size_folds
@@ -2151,18 +1863,9 @@ def bench_step_phase(smi_line):
     fast = runs["auto, fast_scan=True"][0] == runs["auto"][0]
     print(f"  fast scan vs auto: same alpha on {fast.mean():.4%} of the "
           f"voxels (bench.py's alpha_agree)", flush=True)
-    flops = step_flops(BENCH_T, BENCH_TP, BENCH_D, N_VERTICES, BENCH_A,
-                       t_union, t_val, BENCH_F)
-    for label in ("auto", "auto, fast_scan=True"):
-        wall = runs[label][2]
-        print(f"  {label}: {flops / 1e12:.3f} TFLOP (bench.flops_estimate) "
-              f"in {wall:.4f} s = {flops / wall / 1e12:.2f} TFLOP/s, "
-              f"{flops / wall / PEAK_F32_FLOP_PER_S:.1%} of the 67 TFLOP/s "
-              f"fp32 peak", flush=True)
-    stage_split(args, folds, grid)
     del args
     torch.cuda.empty_cache()
-    return runs["auto"][:2]
+    return runs["auto"]
 
 
 def step_full_width_phase(smi_line):
@@ -2172,7 +1875,8 @@ def step_full_width_phase(smi_line):
 
     from litcoder_core_torch.parallel.step import equal_size_folds
 
-    X, Y = signal_problem(NS_T + NS_TEST, N_VERTICES, 3)
+    X, Y = signal_problem(NS_T + NS_TEST, FUSED_D, N_VERTICES, FUSED_RANK,
+                          n_null=0, seed=3, device="cuda")
     args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
     folds = equal_size_folds(NS_T, 5, FUSED_CHUNK, seed=0)
     grid = np.logspace(-1, 8, 10).astype(np.float32)
@@ -2182,16 +1886,12 @@ def step_full_width_phase(smi_line):
     runs = {label: timed_step(f"method {label}", smi_line, args, folds, grid,
                               1, **kw)
             for label, kw in (("auto", {}), ("chol", dict(method="chol")))}
-    for label, (_, metrics, _) in runs.items():
+    for label, (_, metrics) in runs.items():
         if not metrics["median_score"] > FUSED_MEDIAN_R_FLOOR:
             raise AssertionError(f"{label}: median r under "
                                  f"{FUSED_MEDIAN_R_FLOOR}")
     agreement("chol vs auto", runs["chol"][0], runs["auto"][0],
               runs["chol"][1], runs["auto"][1], 0.999, 1e-4)
-    flops = step_flops(NS_T, NS_TEST, NS_D, N_VERTICES, 10, t_union, t_val, 5)
-    wall = runs["auto"][2]
-    print(f"  auto: {flops / 1e12:.3f} TFLOP (bench.flops_estimate) in "
-          f"{wall:.4f} s = {flops / wall / 1e12:.2f} TFLOP/s", flush=True)
     del X, Y, args
     torch.cuda.empty_cache()
 
@@ -2247,13 +1947,9 @@ GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
                   n_head=12)
 GPT2_TINY = dict(vocab_size=600, n_positions=1024, n_embd=16, n_layer=2,
                  n_head=2)
-# Check (a): story 0's first 64 windows (one prefix chain) and 8 full-length
-# windows from its middle, card against CPU under fixed weights, within
-# 1e-3 of the CPU's largest magnitude (fp32 forwards with TF32 off, summed
-# in another order over 12 layers); (b) the same windows with prefix sharing
-# on and off on the card, within 1e-4. Phase 4's tiny model: 1e-5.
-LM_CHECK_CHAIN, LM_CHECK_FULL = 64, 8
-LM_CARD_CPU_RTOL, LM_PREFIX_RTOL, LM_SMALL_RTOL = 1e-3, 1e-4, 1e-5
+# Phase 4's tiny model, card against CPU: every layer within 1e-5 of the
+# CPU's largest magnitude.
+LM_SMALL_RTOL = 1e-5
 # The JAX fit's route for 11 training stories of 305 rows at D = 768 x 4:
 # each inner fold trains on about 2,684 rows < 3,072 features, so the fit
 # takes the dual (kernel) search.
@@ -2279,110 +1975,14 @@ DSV2_LITE = dict(
 DSV2_LAYERS = 4
 
 
-def stand_in_decoder(vocab_size, n_positions, n_embd, n_layer, n_head):
-    """Built only when `transformers` is absent: a GPT-2-shaped decoder in
-    plain torch (token and position embeddings, pre-LN blocks of causal
-    attention and a GELU MLP, a final LN) with Hugging Face's call surface:
-    model(input_ids=, attention_mask=, output_hidden_states=True) returns an
-    object whose .hidden_states are the embeddings, each block's output and,
-    in place of the last, the final LN of it, as GPT2Model's are; its
-    .config has model_type 'gpt2', n_embd and n_layer."""
-    import types
-
-    import torch
-    from torch import nn
-
-    class Block(nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.ln_1 = nn.LayerNorm(n_embd)
-            self.c_attn = nn.Linear(n_embd, 3 * n_embd)
-            self.c_proj = nn.Linear(n_embd, n_embd)
-            self.ln_2 = nn.LayerNorm(n_embd)
-            self.c_fc = nn.Linear(n_embd, 4 * n_embd)
-            self.mlp_proj = nn.Linear(4 * n_embd, n_embd)
-
-        def forward(self, h, allowed):
-            b, t, d = h.shape
-            q, k, v = self.c_attn(self.ln_1(h)).split(d, dim=2)
-            q, k, v = (x.view(b, t, n_head, d // n_head).transpose(1, 2)
-                       for x in (q, k, v))
-            scores = (q @ k.transpose(-1, -2)) / (d // n_head) ** 0.5
-            scores = scores.masked_fill(~allowed[:, None],
-                                        torch.finfo(scores.dtype).min)
-            a = (scores.softmax(dim=-1) @ v).transpose(1, 2)
-            h = h + self.c_proj(a.reshape(b, t, d))
-            return h + self.mlp_proj(nn.functional.gelu(
-                self.c_fc(self.ln_2(h)), approximate="tanh"))
-
-    class Decoder(nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.config = types.SimpleNamespace(
-                model_type="gpt2", n_embd=n_embd, n_layer=n_layer)
-            self.wte = nn.Embedding(vocab_size, n_embd)
-            self.wpe = nn.Embedding(n_positions, n_embd)
-            self.h = nn.ModuleList(Block() for _ in range(n_layer))
-            self.ln_f = nn.LayerNorm(n_embd)
-            for p in self.parameters():
-                if p.dim() > 1:
-                    nn.init.normal_(p, std=0.02)
-
-        def forward(self, input_ids, attention_mask,
-                    output_hidden_states=True):
-            t = input_ids.shape[1]
-            pos = torch.arange(t, device=input_ids.device)
-            h = self.wte(input_ids) + self.wpe(pos)[None]
-            causal = torch.ones(t, t, dtype=torch.bool,
-                                device=input_ids.device).tril()
-            allowed = causal[None] & attention_mask.bool()[:, None, :]
-            hidden = [h]
-            for block in self.h:
-                h = block(h, allowed)
-                hidden.append(h)
-            hidden[-1] = self.ln_f(h)
-            return types.SimpleNamespace(hidden_states=tuple(hidden))
-
-    return Decoder()
-
-
 def lm_model(shape):
-    """(model on the CPU, description): GPT2Model(GPT2Config(**shape))
-    initialised under torch.manual_seed(0), or the stand-in decoder of that
-    shape when transformers is absent."""
+    """GPT2Model(GPT2Config(**shape)) on the CPU, initialised under
+    torch.manual_seed(0)."""
     import torch
-
-    torch.manual_seed(0)
-    try:
-        import transformers
-    except ImportError:
-        return (stand_in_decoder(**shape).eval(),
-                "stand-in decoder (transformers absent)")
     from transformers import GPT2Config, GPT2Model
 
-    return (GPT2Model(GPT2Config(**shape)).eval(),
-            f"transformers {transformers.__version__} GPT2Model")
-
-
-def fullcontext_windows(words, lookback=LM_LOOKBACK):
-    """base_processor._process_fullcontext over HashStubTokenizer: the words
-    max(0, i - lookback)..i, encoded, cut to their last `lookback` tokens
-    and decoded; each word is one token, so the decode keeps the last
-    `lookback` words."""
-    from litcoder_core_torch.utils.testing import HashStubTokenizer
-
-    tok = HashStubTokenizer()
-    windows = []
-    for i, w in enumerate(words):
-        if w == "":
-            windows.append("")
-            continue
-        text = " ".join(words[max(0, i - lookback):i + 1])
-        n_tokens = len(tok.encode(text))
-        if n_tokens > lookback:
-            text = " ".join(text.split()[-lookback:])
-        windows.append(text.strip())
-    return windows
+    torch.manual_seed(0)
+    return GPT2Model(GPT2Config(**shape)).eval()
 
 
 def lm_extractor(model, device, **config):
@@ -2459,9 +2059,8 @@ def small_lm_phase(workdir):
     from litcoder_core_torch import SimpleNeuroidAssembly, StoryData
     from litcoder_core_torch.ops import lanczos_fir as lf
 
-    model, desc = lm_model(GPT2_TINY)
+    model = lm_model(GPT2_TINY)
     card_model = copy.deepcopy(model).to("cuda")
-    print(f"  model: {desc}, 2 layers of width 16", flush=True)
     rng = np.random.default_rng(6)
     n_tr, n_vox, delays = 100, 40, (1, 2, 3, 4)
     cpu_ex = lm_extractor(model, "cpu")
@@ -2477,7 +2076,7 @@ def small_lm_phase(workdir):
         tr_times = (np.arange(n_tr) * TR_SECONDS + TR_SECONDS / 2).astype(
             np.float32)
         words = [f"w{k}" for k in rng.integers(0, 300, n_words)]
-        windows = fullcontext_windows(words)
+        windows = fullcontext_windows(words, LM_LOOKBACK)
         want = cpu_ex.extract_all_layers(windows)
         compare_layers(f"story {i} ({n_words} windows), card vs CPU",
                        card_ex.extract_all_layers(windows), want,
@@ -2516,87 +2115,38 @@ def summed_stage_seconds(ex):
     return totals
 
 
-def lm_phase(asm, workdir, smi_line):
+def lm_phase(asm, workdir):
     """GPT-2-small-shaped random-init model through the port's LM extractor
     and trainer at full width on the first LM_STORIES stories of phase 5's
-    assembly, their stimuli replaced by fullcontext windows: checks (a)-(e)
-    and the extraction's counts and rates. Returns the kernel's launches in
-    the first train(), the LM assembly, the first train()'s metrics and its
+    assembly, their stimuli replaced by fullcontext windows, twice on one
+    activation cache: checks (c)-(e). Returns the kernel's launches in the
+    first train(), the LM assembly, the first train()'s metrics and its
     windows/s (phase 16 (d) reuses all four and the activation cache)."""
-    import copy
     import dataclasses
-
-    import torch
 
     from litcoder_core_torch import SimpleNeuroidAssembly
     from litcoder_core_torch.ops import lanczos_fir as lf
 
-    t0 = time.perf_counter()
-    model, desc = lm_model(GPT2_SMALL)
-    card_model = copy.deepcopy(model).to("cuda")
-    print(f"  model: {desc}, GPT-2-small shape {json.dumps(GPT2_SMALL)}, "
-          f"random init under torch.manual_seed(0), built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card_model = lm_model(GPT2_SMALL).to("cuda")
     stories = [dataclasses.replace(
         asm.story_data[name],
-        stimuli=fullcontext_windows(asm.story_data[name].words))
+        stimuli=fullcontext_windows(asm.story_data[name].words, LM_LOOKBACK))
         for name in asm.stories[:LM_STORIES]]
     lm_asm = SimpleNeuroidAssembly(stories, validation_method="outer")
 
-    # (a) and (b) on story 0's first chain and 8 full windows.
-    windows = stories[0].stimuli
-    mid = len(windows) // 2
-    check = windows[:LM_CHECK_CHAIN] + windows[mid:mid + LM_CHECK_FULL]
-    t0 = time.perf_counter()
-    cpu_feats = lm_extractor(model, "cpu").extract_all_layers(check)
-    cpu_s = time.perf_counter() - t0
-    card_feats = lm_extractor(card_model, "cuda").extract_all_layers(check)
-    compare_layers(f"(a) {len(check)} windows, card vs CPU (CPU "
-                   f"{cpu_s:.1f} s)", card_feats, cpu_feats,
-                   LM_CARD_CPU_RTOL)
-    del model
-    flat = lm_extractor(card_model, "cuda", prefix_sharing=False)
-    compare_layers("(b) prefix sharing on vs off, card",
-                   card_feats, flat.extract_all_layers(check),
-                   LM_PREFIX_RTOL)
-
-    runs, rate = [], None
+    runs = []
     for run in (1, 2):
         trainer, ex = lm_trainer(lm_asm, card_model, "cuda", workdir, "lm",
                                  LM_LAYER)
         stage = summed_stage_seconds(ex)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         lf.launches = 0
-        t0 = time.perf_counter()
         metrics = trainer.train(chunk_length=20, n_inner_folds=5)
-        wall = time.perf_counter() - t0
-        launches = lf.launches
-        peak = torch.cuda.max_memory_allocated()
-        counts = dict(ex.counts)
-        runs.append((metrics, launches, counts))
-        extract_s = stage.get("tokenize_s", 0.0) + stage.get(
-            "forward_total_s", 0.0)
-        print(f"  train() {run}: lanczos_fir launches {launches}; extractor "
-              f"counts {json.dumps(counts)}; summed last_stage_seconds "
-              f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}",
-              flush=True)
-        if counts["windows"]:
-            rate = counts["windows"] / extract_s
-            print(f"  extraction: {counts['windows']} windows, "
-                  f"{counts['real_tokens']} real and "
-                  f"{counts['padded_tokens']} padded tokens in "
-                  f"{counts['chain_forwards']} chain and "
-                  f"{counts['single_forwards']} single forwards; "
-                  f"{counts['windows'] / extract_s:.1f} windows/s, "
-                  f"{counts['real_tokens'] / extract_s:.0f} real and "
-                  f"{counts['padded_tokens'] / extract_s:.0f} padded "
-                  f"tokens/s over tokenize + forward {extract_s:.3f} s",
-                  flush=True)
+        runs.append((metrics, lf.launches, dict(ex.counts), stage))
         check_metrics(metrics, N_VERTICES, np.logspace(-1, 8, 10), LM_PATHS)
-        # No floor: random-init features carry no planted signal.
-        report_path_run(metrics, wall, peak, smi_line, None)
-    (m1, launches, counts1), (m2, launches2, counts2) = runs
+        print(f"  train() {run}: lanczos_fir launches {lf.launches}, "
+              f"{ex.counts['windows']} windows extracted, median r "
+              f"{metrics['median_score']:.6f}", flush=True)
+    (m1, launches, counts1, stage), (m2, launches2, counts2, _) = runs
     if launches != LM_STORIES:
         raise AssertionError(f"(c) the kernel ran {launches} times, not "
                              f"{LM_STORIES}")
@@ -2605,13 +2155,16 @@ def lm_phase(asm, workdir, smi_line):
     if counts2["windows"] or counts2["chain_forwards"] \
             or counts2["single_forwards"]:
         raise AssertionError(f"(e) the second train() ran forwards: {counts2}")
+    rate = counts1["windows"] / (stage.get("tokenize_s", 0.0)
+                                 + stage.get("forward_total_s", 0.0))
     dr = float(np.max(np.abs(np.asarray(m1["correlations"])
                              - np.asarray(m2["correlations"]))))
     same = m1["best_alphas"] == m2["best_alphas"]
     print(f"  (c) launches {launches} = {LM_STORIES} stories; (d) "
           f"solver_paths {m1['solver_paths']}; (e) second train(): "
           f"{launches2} launches, 0 forwards, same alphas {same}, max |dr| "
-          f"{dr:.3e}", flush=True)
+          f"{dr:.3e}; first train() {rate:.1f} windows/s unsharded",
+          flush=True)
     if not same or dr > 1e-6:
         raise AssertionError("(e) the cached run's metrics differ")
     return launches, lm_asm, m1, rate
@@ -2656,7 +2209,7 @@ def dsv2_combine_check(words):
     model.register_forward_pre_hook(
         lambda _, args, kwargs: shapes.add(tuple(kwargs["input_ids"].shape)),
         with_kwargs=True)
-    windows = fullcontext_windows(words)
+    windows = fullcontext_windows(words, LM_LOOKBACK)
     config = dict(model_name="deepseek-v2-lite-random-init",
                   last_token=True, dtype="bfloat16")
     print(f"  (f) DeepSeek-V2-Lite widths, {DSV2_LAYERS} layers ({len(moe)} "
@@ -3558,7 +3111,7 @@ def cli_layer_sweep(lm_asm, workdir, smi_line):
     from litcoder_core_torch.utils.testing import HashStubTokenizer
 
     lm_path = saved_pickle(lm_asm, os.path.join(workdir, "lm12.pkl"))
-    model, desc = lm_model(GPT2_SMALL)
+    model = lm_model(GPT2_SMALL)
     base = vars(cli.parse_args([
         "--dataset_type", "lebel", "--assembly_path", lm_path,
         "--modalities", "language_model", "--model_names",
@@ -3602,7 +3155,7 @@ def cli_layer_sweep(lm_asm, workdir, smi_line):
         t0 = time.perf_counter()
         again = sweeps.run_grid_sweep(base, **kw)
         wall_again = time.perf_counter() - t0
-    print(f"  (c) model: {desc}; grid of {len(rows)} layers in {wall:.3f} s, "
+    print(f"  (c) grid of {len(rows)} layers in {wall:.3f} s, "
           f"lanczos_fir launches {launches}", flush=True)
     for layer, seconds, stages in walls:
         print(f"  (c) layer {layer}: cli.run {seconds:.3f} s, "
@@ -3638,7 +3191,8 @@ def linear_full_width(smi_line):
     from litcoder_core_torch.models import LinearPredictivityModel, linear
     from litcoder_core_torch.models.folding import group_kfold_splits
 
-    X, Y = signal_problem(LINEAR_T, N_VERTICES, 9)
+    X, Y = signal_problem(LINEAR_T, FUSED_D, N_VERTICES, FUSED_RANK,
+                          n_null=0, seed=9, device="cuda")
     groups = np.arange(LINEAR_T) // LINEAR_GROUP_ROWS
     model = LinearPredictivityModel({"n_folds": LINEAR_FOLDS,
                                      "device": "cuda"})
@@ -3759,7 +3313,8 @@ def mesh_northstar(smi_line, want):
     from litcoder_core_torch.parallel.mesh import make_mesh
 
     mb, ab = want
-    X, Y = signal_problem(NS_T + NS_TEST, NS_V, 1, n_null=NS_NULL)
+    X, Y = signal_problem(NS_T + NS_TEST, FUSED_D, NS_V, FUSED_RANK,
+                          n_null=NS_NULL, seed=1, device="cuda")
     args = (X[:NS_T], Y[:NS_T], X[NS_T:], Y[NS_T:])
     grid = np.logspace(-1, 8, 10)
     mesh = make_mesh(devices=["cuda:0"] * MESH_ENTRIES_FIT)
@@ -3882,7 +3437,6 @@ def mesh_lm(lm_asm, workdir, smi_line, want):
     """(d), language model: phase 12's trainer with the extractor on a
     (2, 2) mesh, its cache a copy of phase 12's without two stories, so
     those two are extracted tensor-parallel. Returns the launches."""
-    import copy
     import glob
     import shutil
 
@@ -3906,9 +3460,7 @@ def mesh_lm(lm_asm, workdir, smi_line, want):
             os.remove(path)
     if set(plain) != redo:
         raise AssertionError(f"(d) phase 12's cache lacks {redo - set(plain)}")
-    model, _ = lm_model(GPT2_SMALL)
-    card_model = copy.deepcopy(model).to("cuda")
-    del model
+    card_model = lm_model(GPT2_SMALL).to("cuda")
     mesh = make_lm_mesh(*MESH_LM_SHAPE, devices=["cuda:0"] * 4)
     trainer, ex = lm_trainer(lm_asm, card_model, "cuda", workdir, "lm_tp",
                              LM_LAYER, mesh=mesh)
@@ -4159,7 +3711,7 @@ def ex_example(workdir, m_lm):
     from litcoder_core_torch.utils.testing import HashStubTokenizer
 
     twin = example_module("torch_example")
-    model, desc = lm_model(GPT2_SMALL)
+    model = lm_model(GPT2_SMALL)
     argv = ["--assembly_path", os.path.join(workdir, "lm12.pkl"),
             "--modality", "language_model", "--model_name",
             "gpt2-random-init", "--layer_idx", str(LM_LAYER), "--lookback",
@@ -4172,7 +3724,7 @@ def ex_example(workdir, m_lm):
                                       tokenizer=HashStubTokenizer())
     share = float(np.mean(np.asarray(got["best_alphas"])
                           == np.asarray(m_lm["best_alphas"])))
-    print(f"  (b) torch_example, {desc}: main() {wall:.3f} s, lanczos_fir "
+    print(f"  (b) torch_example: main() {wall:.3f} s, lanczos_fir "
           f"launches {launches}, median r {got['median_score']:.6f} "
           f"(phase 12: {m_lm['median_score']:.6f}), the same alpha as "
           f"phase 12 on {share:.4%} of the voxels", flush=True)
@@ -4213,7 +3765,7 @@ def ex_wide(smi_line):
     import torch
 
     twin = example_module("torch_wide_all_layer_fit")
-    model, desc = lm_model(GPT2_SMALL)
+    model = lm_model(GPT2_SMALL)
     torch.cuda.reset_peak_memory_stats()
     with LogLines("litcoder_core_torch.models.nested_cv",
                   "alpha search path") as log:
@@ -4224,7 +3776,7 @@ def ex_wide(smi_line):
     del model
     T, D = got["design"]
     m = got["metrics"]
-    print(f"  (d) torch_wide_all_layer_fit, {desc}: {got['n_layers']} layers "
+    print(f"  (d) torch_wide_all_layer_fit: {got['n_layers']} layers "
           f"x {GPT2_SMALL['n_embd']} x 4 delays, design T={T} x D={D}, "
           f"V={EX_WIDE_VOXELS}; main() {wall:.3f} s, lanczos_fir launches "
           f"{launches}; log: {log.messages}; median r "
@@ -4435,7 +3987,7 @@ def main() -> int:
         record["launches"], asm, kv_path = main_path_phase(workdir, smi_line)
 
         step_launches.begin("6 Narratives path at full width, full nested CV")
-        record["launches_narratives"] = narratives_phase(workdir, smi_line)
+        record["launches_narratives"] = narratives_phase(workdir)
 
         step_launches.begin("7 fused full-CV route at full size")
         fused_full_cv_phase(smi_line)
@@ -4455,8 +4007,7 @@ def main() -> int:
         average_trainer_phase(asm, kv_path, workdir, smi_line)
 
         step_launches.begin("12 language-model trainer at full width")
-        record["launches_lm"], lm_asm, m_lm, lm_rate = lm_phase(
-            asm, workdir, smi_line)
+        record["launches_lm"], lm_asm, m_lm, lm_rate = lm_phase(asm, workdir)
         main_path = dsv2_combine_check(asm.story_data[asm.stories[0]].words)
         combine_record["launches_phase3"] = combine_record.pop("launches")
         combine_record["launches"] = main_path.pop("launches")

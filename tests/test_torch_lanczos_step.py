@@ -377,37 +377,21 @@ CARD_SIZES = [1, 4, 40, 488, 1424, 1425, 3072]
 @pytest.mark.card
 @pytest.mark.parametrize("n", CARD_SIZES)
 def test_kernel_steps_match_the_plain_step(n, card):
-    """Each step from the same inputs: basis[i] is v exactly; a, b and
-    b v_next (the residual) agree within 1e-5 of the step's scale (fp32
-    sums of at most 3,072 terms in another order); then both go on from
-    the plain step's state. n 1,425 splits unevenly over the kernel's 8
+    """Each step from the same inputs (chip_smoke.check_step_kernel, the
+    check phase 3 runs at n 1,424 and 3,072): the basis rows exactly; a, b
+    and b v_next (the residual) within 1e-5 of the step's scale (fp32 sums
+    of at most 3,072 terms in another order); then both go on from the
+    plain step's state. n 1,425 splits unevenly over the kernel's 8
     blocks, n 1 and 4 leave some empty; n 1, 4 and 40 run m = n. The whole
     recurrence's lmax agrees within 1e-5."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
     G = _well_conditioned(n).to(card)
-    m = min(64, n)
     with matmul_tf32(False):
+        assert chip_smoke.STEP_RTOL == 1e-5
+        assert chip_smoke.check_step_kernel(G, min(64, n)) <= 1e-5
         v0 = G @ torch.ones(n, device=card)
-        v = v0 / torch.clamp(torch.linalg.norm(v0), min=1e-30)
-        bufs = [v, torch.zeros(n, device=card),
-                torch.zeros((m, n), device=card), torch.zeros(m, device=card),
-                torch.zeros(m, device=card), torch.zeros(2, device=card)]
-        for i in range(m):
-            w = G @ bufs[0]
-            mine = [t.clone() for t in bufs]
-            ls.lanczos_step_reference(w, *bufs, i)
-            ls.LanczosSteps(*mine)(w, i)
-            v_p, vn_p, basis_p, diag_p, off_p, state_p = bufs
-            v_k, vn_k, basis_k, diag_k, off_k, state_k = mine
-            tol = 1e-5 * max(float(state_p[1]), 1.0)
-            assert torch.equal(basis_k[i], v_p), i
-            assert torch.equal(basis_k[:i], basis_p[:i]), i
-            assert abs(float(diag_k[i] - diag_p[i])) <= tol, i
-            assert abs(float(off_k[i] - off_p[i])) <= tol, i
-            assert float(torch.max(torch.abs(off_k[i] * vn_k
-                                             - off_p[i] * vn_p))) <= tol, i
-            assert torch.equal(state_k[0], off_k[i]), i
-            assert abs(float(state_k[1] - state_p[1])) <= tol, i
-            bufs = [vn_p, v_p, basis_p, diag_p, off_p, state_p]
         want = _unfused_lmax(lambda x: G @ x, v0, 64,
                              tr._gershgorin_bound(G))[0]
         got = tr.lmax_dense(G)

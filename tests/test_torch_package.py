@@ -319,6 +319,24 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
         _entry_points(tmp_path)[name]()
 
 
+def test_chip_smoke_takes_the_benchmark_traffic():
+    """chip_smoke.py draws its problems and windows with the benchmark's own
+    generators and rates its kernels against the benchmark's peaks, so no
+    second copy can drift. The script's former window function mapped an
+    empty word to an empty window, which the benchmark's does not; the
+    script's vocabulary (w0 to w9999, one stub token each) has no empty
+    word, so the swap changes no window."""
+    import chip_smoke
+    from cardbench.traffic import signal as bench_signal
+    from cardbench.traffic import stories as bench_stories
+
+    assert chip_smoke.signal_problem is bench_signal.signal_problem
+    assert chip_smoke.fullcontext_windows is bench_stories.fullcontext_windows
+    peaks = json.loads((REPO / "cardbench" / "peaks.json").read_text())
+    assert chip_smoke.PEAK_BYTES_PER_S == peaks["bytes_per_s"]
+    assert chip_smoke.PEAK_F32_FLOP_PER_S == peaks["f32_flop_per_s"]
+
+
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
     import chip_smoke
 
