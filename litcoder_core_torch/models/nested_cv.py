@@ -50,9 +50,11 @@ counts folds, alphas, voxel_chunks), `litcoder.fit.refit` (refit,
 held-out predictions, r and the permutation null, ending with r and p on
 the host: that copy is where the host waits for the refit) and
 `litcoder.fit.host_stats` (host p-values, BH-FDR, Fisher, the majority
-mask, the metrics). `litcoder.fit.gram` (each X^T X, X^T Y or X X^T
-formed) and `litcoder.fit.lmax` (ridge.py) nest in whichever of those
-forms them.
+mask, the metrics). `litcoder.fit.weights_to_host` (each voxel chunk's
+weights into the host array, through utils.device.copy_to_host's pinned
+staging ring on CUDA) nests in the refit. `litcoder.fit.gram` (each X^T X,
+X^T Y or X X^T formed) and `litcoder.fit.lmax` (ridge.py) nest in
+whichever of those forms them.
 """
 
 import logging
@@ -84,6 +86,7 @@ from litcoder_core_torch.ops.stats import (
 )
 from litcoder_core_torch.utils.device import (
     as_f32,
+    copy_to_host,
     matmul_tf32,
     resolve_device,
     to_numpy,
@@ -752,6 +755,15 @@ def _score_held_out(Yte: torch.Tensor, pred: torch.Tensor,
     return obs, p
 
 
+def _weights_to_host(dst: np.ndarray, wt: torch.Tensor) -> None:
+    """One voxel chunk's weights into its columns of the host weights, in
+    the span `litcoder.fit.weights_to_host` (bytes, blocks, and staged: 1
+    through the pinned staging ring on CUDA, 0 on the CPU)."""
+    with annotate("litcoder.fit.weights_to_host", bytes=dst.nbytes,
+                  staged=int(wt.is_cuda)) as span:
+        span.counts["blocks"] = copy_to_host(dst, wt)
+
+
 def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
                    X_test: torch.Tensor, Y_test: torch.Tensor,
                    valphas: np.ndarray, normalpha: bool, singcutoff: float,
@@ -760,10 +772,10 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
                    perm_offsets: Optional[torch.Tensor] = None
                    ) -> Tuple[Optional[np.ndarray], np.ndarray, np.ndarray]:
     """Refit with per-voxel alphas on one spectral state of X_train, predict
-    the held-out set and score it, voxel chunk by voxel chunk (weights go to
-    the host chunk by chunk). Returns (weights (D, V) or None, correlations
-    (V,), float64 p-values (V,)): parametric from the host tail, or with
-    perm_offsets the permutation test (one-sided on r).
+    the held-out set and score it, voxel chunk by voxel chunk (each chunk's
+    weights go into its columns of one host array). Returns (weights (D, V)
+    or None, correlations (V,), float64 p-values (V,)): parametric from the
+    host tail, or with perm_offsets the permutation test (one-sided on r).
 
     'chol'/'dual' are search methods; the refit factors whichever side of
     X_train is smaller ('auto'), other methods factor as asked. Per-shard
@@ -790,7 +802,9 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
                                   device=X_train.device)
         if normalpha:
             nalphas = nalphas * svd.S[0]
-        wt_parts, corr_parts, p_parts = [], [], []
+        weights = (np.empty((X_train.shape[1], Y_train.shape[1]),
+                            np.float32) if return_weights else None)
+        corr_parts, p_parts = [], []
         for lo, hi in _voxel_chunks(Y_train.shape[1], voxel_chunk_size):
             wt = ridge_fit_from_svd(svd, Y_train[:, lo:hi], nalphas[lo:hi])
             corr, p = _score_held_out(Y_test[:, lo:hi], predict(X_test, wt),
@@ -798,10 +812,8 @@ def _fit_and_score(X_train: torch.Tensor, Y_train: torch.Tensor,
             corr_parts.append(corr)
             p_parts.append(p)
             if return_weights:
-                wt_parts.append(to_numpy(wt))
+                _weights_to_host(weights[:, lo:hi], wt)
             del wt
-        weights = (np.concatenate(wt_parts, axis=1) if return_weights
-                   else None)
         correlations = to_numpy(torch.cat(corr_parts))
         pvalues = (None if perm_offsets is None
                    else to_numpy(torch.cat(p_parts)).astype(np.float64))
@@ -901,19 +913,21 @@ def _refit_score_from_gram(G_tr: torch.Tensor, XtY_tr: torch.Tensor,
     ridge_fit_from_svd + predict, from the downdated training Gram and XtY
     instead of the training rows. One eigh, then per voxel chunk of `chunk`
     (None: one chunk) its weights, predictions of the test rows `te` and
-    scores; weights go to the host chunk by chunk, as in _fit_and_score."""
+    scores; weights go to the host chunk by chunk, into one array, as in
+    _fit_and_score."""
     state = _refit_state_from_gram(G_tr, singcutoff)
     nal = valphas * state[0][0] if normalpha else valphas
-    wt_parts, corr_parts, p_parts = [], [], []
+    weights = (np.empty(XtY_tr.shape, np.float32) if return_weights
+               else None)
+    corr_parts, p_parts = [], []
     for lo, hi in _voxel_chunks(Y.shape[1], chunk):
         wt = _weights_from_state(state, XtY_tr[:, lo:hi], nal[lo:hi])
         corr, p = _score_held_out(Y[:, lo:hi][te], Xte @ wt, perm_offsets)
         corr_parts.append(corr)
         p_parts.append(p)
         if return_weights:
-            wt_parts.append(to_numpy(wt))
+            _weights_to_host(weights[:, lo:hi], wt)
         del wt
-    weights = np.concatenate(wt_parts, axis=1) if return_weights else None
     return (weights, torch.cat(corr_parts),
             None if perm_offsets is None else torch.cat(p_parts))
 
@@ -1056,7 +1070,8 @@ def _fused_outer_fold(X, Y, G_full, XtY_full, train_idx, test_idx,
             perm_ps.append(None if perm_p is None else to_numpy(perm_p))
             lo = hi
     return (best_valphas,
-            np.concatenate(wts, axis=1) if return_weights else None,
+            (wts[0] if len(wts) == 1 else np.concatenate(wts, axis=1))
+            if return_weights else None,
             np.concatenate(corrs),
             None if perm_offsets is None
             else np.concatenate(perm_ps).astype(np.float64))

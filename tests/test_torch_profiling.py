@@ -160,7 +160,8 @@ def test_fit_routes_give_their_spans(route):
     assert all(s["parent"] is not None for s in record[1:])
     assert set(names) <= {"litcoder.fit", "litcoder.fit.gram",
                           "litcoder.fit.search", "litcoder.fit.lmax",
-                          "litcoder.fit.refit", "litcoder.fit.host_stats"}
+                          "litcoder.fit.refit", "litcoder.fit.host_stats",
+                          "litcoder.fit.weights_to_host"}
     for name in ("litcoder.fit.gram", "litcoder.fit.search",
                  "litcoder.fit.lmax", "litcoder.fit.refit"):
         assert names[name] >= 1, name
@@ -184,6 +185,13 @@ def test_fit_routes_give_their_spans(route):
             assert s["counts"]["alphas"] == 10
             chunks = {"chunked": 3, "sharded": 2}.get(route, 1)
             assert s["counts"]["voxel_chunks"] == chunks
+        if s["name"] == "litcoder.fit.weights_to_host":
+            assert record[s["parent"]]["name"] == "litcoder.fit.refit"
+            assert s["counts"]["staged"] == 0      # one copy on the CPU
+            assert s["counts"]["blocks"] == 1
+    # each refit's voxel chunks (3 when chunked) reach the host
+    assert names["litcoder.fit.weights_to_host"] == names[
+        "litcoder.fit.refit"] * (3 if route == "chunked" else 1)
     assert names["litcoder.fit.host_stats"] >= 1
 
 
